@@ -1,0 +1,641 @@
+"""Smoke run of the PyTorch / CUDA port (``e3diff_tpu_torch``) on one card.
+
+Phases, each of which stops the run with a non-zero exit when it fails:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build the hand-written kernels from ``e3diff_tpu_torch/csrc`` with
+   ``nvcc`` for sm_90a, printing the build seconds and ``ptxas`` resources;
+3. hold each kernel against its plain PyTorch version on the card, in f32
+   and bf16, at the shapes the structure sampler gives it (and the f32
+   attention also against a float64 softmax reference);
+4. build the full-width 146M ``StructureDenoiser`` with seeded random
+   weights and bf16 compute, and check its parameter count;
+5. one ``decode`` through the kernels against the same ``decode`` through
+   the plain versions, in bf16 and in f32;
+6. the main path: the structure sampler at B=32, receptor 64, ligand 16 --
+   DDPM-1000, DDIM-25 and CFG w=1.5 DDIM-25, with int8_matmul and f32
+   weight storage, plus the sampling CLI -- checking that every sample is
+   finite and in [-pi, pi) and that the kernels were launched exactly
+   13 + 29 times per encode and 25 + 41 times per reverse step;
+7. each kernel's device time beside its plain version, a one-call PyTorch
+   yardstick and its bound.
+
+The last three lines are the kernels' JSON record, the card, and
+``{"ok": true, "device": {...}}``.
+
+Usage, from the root of a checkout:
+    python3 chip_smoke.py              # what the checks above need
+    python3 chip_smoke.py --profile DIR  # also a torch.profiler breakdown
+                                         # of a DDIM run (device busy share),
+                                         # its trace written to DIR
+Without a CUDA card, or away from the repository, it exits non-zero and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# the main path: bench.py's structure-sampler shape
+B, L_REC, L_LIG = 32, 64, 16
+MAX_POS = 64                 # max_seq_len of the sampling config
+T, DDIM_STEPS, CFG_SCALE = 1000, 25, 1.5
+HEADS, HEAD_DIM = 12, 64
+HIDDEN = HEADS * HEAD_DIM
+
+# kernel calls of one forward (models/structure.py, models/blocks.py)
+PER_ENCODE = {"fused_attention": 13, "fused_layernorm": 29}
+PER_STEP = {"fused_attention": 25, "fused_layernorm": 41}
+
+# H100 SXM (NVIDIA data sheet, at the full 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+# Kernel against plain version. f32: the repo's Pallas tolerance
+# (tests/test_pallas_kernels.py). bf16: the two round P and the output to
+# bf16 after sums taken in different orders, so one may land a bf16 step
+# (2^-8 relative) from the other in P and then in the output.
+ATTN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+LN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
+# Whole decode, kernels against plain versions: f32 differs only by
+# summation order (~1e-6 per op); in bf16 those rounding flips pass
+# through 12 layers, so the outputs are held to 3% in relative L2 norm.
+DECODE_F32_ATOL = 1e-3
+DECODE_BF16_REL_L2 = 3e-2
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def phase(title: str):
+    print(f"\n== {title}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def _cycles_per_ms(torch) -> float:
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def time_call(torch, fn, iters: int, reps: int = 7) -> tuple[float, float]:
+    """(device ms, host ms) of one call of ``fn``, medians over ``reps``.
+
+    Device: CUDA events around ``iters`` back-to-back calls, queued behind
+    a sleep kernel long enough for the host to enqueue them all, so the
+    host's launch cost is hidden. Host: wall time of enqueueing one call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    cycles = int((2.0 * host_ms * iters + 1.0) * _CYCLES_PER_MS)
+    dev, host = [], []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / iters)
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end) / iters)
+    return statistics.median(dev), statistics.median(host)
+
+
+_CYCLES_PER_MS = 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase helpers
+# ---------------------------------------------------------------------------
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    check(len(out) >= 1, "nvidia-smi printed no card")
+    return out[0].strip()
+
+
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def compare(label, got, want, atol, rtol) -> float:
+    err = (got.float() - want.float()).abs()
+    worst = err.max().item()
+    ok = bool(((err <= atol + rtol * want.float().abs()).all()
+               & got.float().isfinite().all()).item())
+    print(f"  {label}: max_abs_err {worst:.3e} "
+          f"(atol {atol:g} + rtol {rtol:g}) {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    check(ok, f"{label}: kernel disagrees with its plain version")
+    return worst
+
+
+def attention_inputs(torch, gen, lq, lk, dtype, with_table, ragged):
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = randn(B, lq, HIDDEN), randn(B, lk, HIDDEN), randn(B, lk, HIDDEN)
+    mask = torch.zeros(B, lk, device="cuda")
+    if ragged:
+        lengths = torch.randint(1, lk + 1, (B,), generator=gen, device="cuda")
+        keep = torch.arange(lk, device="cuda")[None, :] < lengths[:, None]
+        mask = mask.masked_fill(~keep, -10000.0)
+    table = randn(2 * MAX_POS - 1, HEAD_DIM) if with_table else None
+    return q, k, v, mask, table
+
+
+def attention_f64(torch, q, k, v, mask, table):
+    """The attention core in float64 with torch.softmax, independent of
+    both the kernel and its plain version."""
+    lq, lk = q.shape[1], k.shape[1]
+    q4, k4, v4 = (t.double().view(B, -1, HEADS, HEAD_DIM) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q4, k4)
+    if table is not None:
+        idx = (torch.arange(lq, device="cuda")[:, None]
+               - torch.arange(lk, device="cuda")[None, :] + MAX_POS - 1)
+        s = s + torch.einsum("bqhd,qkd->bhqk", q4, table.double()[idx])
+    p = torch.softmax(s / math.sqrt(HEAD_DIM)
+                      + mask.double()[:, None, None, :], dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v4).reshape(B, lq, HIDDEN)
+
+
+def ln_inputs(torch, gen, rows, dtype, residual, affine):
+    x = torch.randn(rows, HIDDEN, generator=gen, device="cuda").to(dtype)
+    res = (torch.randn(rows, HIDDEN, generator=gen, device="cuda").to(dtype)
+           if residual else None)
+    w = b = None
+    if affine:
+        w = 1 + 0.1 * torch.randn(HIDDEN, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(HIDDEN, generator=gen, device="cuda")
+    return x, w, b, res, (1e-12 if affine else 1e-5)
+
+
+def attention_cost(lq, lk, with_table, elem) -> tuple[int, int]:
+    """Bytes (each input read once, the output written once) and
+    operations (QK^T, P V and the relative bias, 2 per multiply-add)."""
+    table_rows = (lq + lk - 1) if with_table else 0
+    nbytes = (elem * (2 * B * lq * HIDDEN + 2 * B * lk * HIDDEN
+                      + table_rows * HEAD_DIM) + 4 * B * lk)
+    ops = 2 * B * HEADS * lq * lk * HEAD_DIM * (3 if with_table else 2)
+    return nbytes, ops
+
+
+def ln_cost(rows, residual, affine, elem) -> tuple[int, int]:
+    nbytes = elem * rows * HIDDEN * (3 if residual else 2) \
+        + (8 * HIDDEN if affine else 0)
+    return nbytes, 8 * rows * HIDDEN
+
+
+def bound(nbytes, ops, dtype_name) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def expected_param_count(enc, dec, n_features=8, n_aa=20) -> int:
+    """The StructureDenoiser's parameter count from its configs alone
+    (Linears, LayerNorms, distance tables, the Fourier W), independent of
+    the module code; at max_seq_len 64 it is the 146,214,664 values that
+    jax.eval_shape gives the JAX model."""
+    def lin(i, o):
+        return i * o + o
+
+    def block(cfg, relative):
+        h = cfg.hidden_size
+        table = (2 * cfg.max_position_embeddings - 1) * cfg.head_dim
+        return 4 * lin(h, h) + 2 * h + (table if relative else 0)
+
+    def selayer(cfg):
+        h, m = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
+        return (lin(h, h) + lin(h, 6 * h) + block(cfg, True) + lin(h, m)
+                + lin(m, h))
+
+    def layer(cfg):
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        cross = block(cfg, False) if cfg.add_cross_attention else 0
+        return block(cfg, True) + cross + lin(h, i) + lin(i, h) + 2 * h
+
+    def emb(cfg, n_in):
+        return lin(n_in, cfg.hidden_size) + 2 * cfg.hidden_size
+
+    h = dec.hidden_size
+    return (emb(enc, n_features) + emb(enc, n_aa) + selayer(enc)
+            + enc.num_layers * layer(enc)
+            + emb(dec, n_features) + h // 2 + selayer(dec)
+            + dec.num_layers * layer(dec)
+            + lin(h, h) + 2 * h + lin(h, n_features))
+
+
+def make_batch(torch, gen):
+    """bench.py's sampling batch, with ragged peptide (5..16) and pocket
+    (16..64) lengths."""
+    def lengths_mask(lo, hi, length):
+        n = torch.randint(lo, hi + 1, (B,), generator=gen, device="cuda")
+        return (torch.arange(length, device="cuda")[None, :]
+                < n[:, None]).float()
+
+    seq_idx = torch.randint(0, 20, (B, L_REC), generator=gen, device="cuda")
+    return {
+        "ligand_angles": torch.zeros(B, L_LIG, 8, device="cuda"),
+        "ligand_attn_mask": lengths_mask(5, L_LIG, L_LIG),
+        "receptor_seq": torch.nn.functional.one_hot(seq_idx, 20).float(),
+        "receptor_angles": (torch.rand(B, L_REC, 8, generator=gen,
+                                       device="cuda") * 2 - 1) * math.pi,
+        "receptor_attn_mask": lengths_mask(16, L_REC, L_REC),
+    }
+
+
+def in_angle_range(torch, x) -> bool:
+    x = torch.as_tensor(x)
+    return bool(x.isfinite().all() and x.min() >= -math.pi
+                and x.max() < math.pi)
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    args.add_argument("--profile", metavar="DIR", default=None,
+                      help="also profile a DDIM run with torch.profiler "
+                           "and write its trace to DIR")
+    args = args.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card here; nothing was run",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "e3diff_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository "
+              "(no e3diff_tpu_torch/csrc); nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+
+    from e3diff_tpu_torch.cli.sample_structure import main as cli_main
+    from e3diff_tpu_torch.diffusion import GaussianAngleDiffusion
+    from e3diff_tpu_torch.models import (
+        StructureDenoiser,
+        structure_model_configs,
+    )
+    from e3diff_tpu_torch.models.structure import state_dict_numel
+    from e3diff_tpu_torch.ops import _build, kernels
+    from e3diff_tpu_torch.ops.angles import wrap_angle
+    from e3diff_tpu_torch.sampling import make_structure_sampler
+    from e3diff_tpu_torch.utils.params_io import cast_inference_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    global _CYCLES_PER_MS
+    t_start = time.perf_counter()
+
+    # 1 ---------------------------------------------------------------
+    phase("1. card")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}, device count "
+          f"{torch.cuda.device_count()}")
+
+    # 2 ---------------------------------------------------------------
+    phase("2. build the kernels (nvcc, sm_90a)")
+    t0 = time.perf_counter()
+    lib_path = _build.build(verbose=True)
+    kernels_lib = _build.load_library()
+    check(kernels_lib is not None, "kernel library did not load")
+    print(f"built {lib_path.relative_to(ROOT)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    _CYCLES_PER_MS = _cycles_per_ms(torch)
+
+    # 3 ---------------------------------------------------------------
+    phase("3. each kernel against its plain version")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    attn_cases = [  # (label, Lq, Lk, table, ragged mask)
+        ("decoder self 32x16x16 +table", L_LIG, L_LIG, True, False),
+        ("cross 32x16x64", L_LIG, L_REC, False, False),
+        ("encoder self 32x64x64 +table", L_REC, L_REC, True, False),
+        ("ragged 32x16x50 +table, masked tail", L_LIG, 50, True, True),
+    ]
+    worst = {"fused_attention": 0.0, "fused_layernorm": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for label, lq, lk, table, ragged in attn_cases:
+            q, k, v, mask, tab = attention_inputs(torch, gen, lq, lk, dtype,
+                                                  table, ragged)
+            kw = dict(num_heads=HEADS, max_pos=MAX_POS)
+            got = kernels.fused_attention(q, k, v, mask, tab, **kw)
+            want = kernels.attention_plain(q, k, v, mask, tab, **kw)
+            torch.cuda.synchronize()
+            err = compare(f"attention {label} {dname}", got, want,
+                          *ATTN_TOL[dname])
+            if dtype == torch.float32:
+                compare(f"attention {label} {dname} vs float64", got,
+                        attention_f64(torch, q, k, v, mask, tab),
+                        *ATTN_TOL[dname])
+            if dtype == torch.bfloat16:
+                worst["fused_attention"] = max(worst["fused_attention"], err)
+        for rows in (B * L_LIG, B * L_REC):
+            for residual in (False, True):
+                for affine in (False, True):
+                    x, w, b, res, eps = ln_inputs(torch, gen, rows, dtype,
+                                                  residual, affine)
+                    got = kernels.fused_layernorm(x, w, b, res, eps=eps)
+                    want = kernels.layernorm_plain(x, w, b, res, eps=eps)
+                    torch.cuda.synchronize()
+                    label = (f"layernorm {rows}x{HIDDEN}"
+                             f"{' +residual' if residual else ''}"
+                             f"{' +affine' if affine else ''} {dname}")
+                    err = compare(label, got, want, *LN_TOL[dname])
+                    if dtype == torch.bfloat16:
+                        worst["fused_layernorm"] = max(
+                            worst["fused_layernorm"], err)
+
+    # 4 ---------------------------------------------------------------
+    phase("4. the full-width StructureDenoiser (bf16 compute)")
+    enc, dec = structure_model_configs(max_seq_len=MAX_POS,
+                                       dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = StructureDenoiser(enc, dec, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = state_dict_numel(model)
+    want_params = expected_param_count(enc, dec)
+    print(f"built in {time.perf_counter() - t0:.2f} s: {n_params:,} values "
+          f"(expected {want_params:,})")
+    check(n_params == want_params, "parameter count differs")
+
+    # 5 ---------------------------------------------------------------
+    phase("5. one decode through the kernels against the plain versions")
+    batch = make_batch(torch, gen)
+    t_vec = torch.randint(0, T, (B,), generator=gen, device="cuda")
+    x_t = wrap_angle(torch.randn(B, L_LIG, 8, generator=gen, device="cuda"))
+
+    @contextlib.contextmanager
+    def plain_versions():
+        saved = kernels.fused_attention, kernels.fused_layernorm
+        kernels.fused_attention = kernels.attention_plain
+        kernels.fused_layernorm = kernels.layernorm_plain
+        try:
+            yield
+        finally:
+            kernels.fused_attention, kernels.fused_layernorm = saved
+
+    def one_decode(m):
+        enc_out = m.encode_receptor(batch["receptor_seq"],
+                                    batch["receptor_angles"],
+                                    batch["receptor_attn_mask"])
+        return m.decode(t_vec, x_t, batch["ligand_attn_mask"], enc_out,
+                        batch["receptor_attn_mask"],
+                        cross_kv=m.precompute_cross_kv(enc_out))
+
+    enc32, dec32 = structure_model_configs(max_seq_len=MAX_POS)
+    model32 = StructureDenoiser(enc32, dec32, device="cuda", seed=None)
+    model32.load_state_dict(model.state_dict(), strict=True)
+    for m, dname in ((model32, "f32"), (model, "bf16")):
+        got = one_decode(m)
+        with plain_versions():
+            want = one_decode(m)
+        torch.cuda.synchronize()
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        err = max_err(got, want)
+        print(f"  decode {dname}: max_abs_err {err:.3e}, relative L2 "
+              f"{rel:.3e}, |eps| max {want.float().abs().max().item():.2f}")
+        check(got.isfinite().all().item(), f"decode {dname}: not finite")
+        if dname == "f32":
+            check(err <= DECODE_F32_ATOL, f"decode f32 differs by {err}")
+        else:
+            check(rel <= DECODE_BF16_REL_L2, f"decode bf16 differs by {rel}")
+    del model32
+
+    # 6 ---------------------------------------------------------------
+    phase("6. the main path: the structure sampler, B=32, receptor 64, "
+          "ligand 16")
+    diffusion = GaussianAngleDiffusion.cosine(T, device="cuda")
+    model8 = StructureDenoiser(enc, dec, device="cuda", seed=None)
+    model8.load_state_dict(model.state_dict(), strict=True)
+    cast_inference_params(model8, "int8_matmul")
+    runs = [("ddpm", T, 1.0), ("ddim", DDIM_STEPS, 1.0),
+            ("ddim", DDIM_STEPS, CFG_SCALE)]
+    seconds, main_counts = {}, None
+    for storage, m in (("int8_matmul", model8), ("f32", model)):
+        warm = make_structure_sampler(m, diffusion, sampler="ddim",
+                                      ddim_steps=2, guidance_scale=CFG_SCALE,
+                                      return_trajectory=False)
+        warm(batch, generator=torch.Generator(device="cuda").manual_seed(9))
+        for sampler, n_steps, scale in runs:
+            name = (f"{sampler}-{n_steps}"
+                    f"{f' cfg w={scale}' if scale != 1.0 else ''} {storage}")
+            run = make_structure_sampler(
+                m, diffusion, sampler=sampler, ddim_steps=n_steps,
+                guidance_scale=scale, return_trajectory=False)
+            g = torch.Generator(device="cuda").manual_seed(1)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            final, _ = run(batch, generator=g)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {k.__name__: k.launches for k in kernels.KERNELS}
+            want = {k: PER_ENCODE[k] + n_steps * PER_STEP[k]
+                    for k in PER_STEP}
+            seconds[name] = secs
+            print(f"  {name}: {secs:.3f} s ({secs / n_steps * 1e3:.2f} ms "
+                  f"per step), launches {counts}", flush=True)
+            check(counts == want, f"{name}: launches {counts} != {want}")
+            check(tuple(final.shape) == (B, L_LIG, 8), f"{name}: shape")
+            check(in_angle_range(torch, final),
+                  f"{name}: output not finite or outside [-pi, pi)")
+            if (sampler, storage) == ("ddpm", "int8_matmul"):
+                main_counts = counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "output.pkl"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = cli_main(["--synthetic", "--sampler", "ddim",
+                            "--ddim_steps", str(DDIM_STEPS),
+                            "--params_dtype", "int8_matmul",
+                            "--batch_size", str(B),
+                            "--max_seq_len", str(MAX_POS),
+                            "--ligand_max_len", str(L_LIG),
+                            "--no_trajectory", "--output", str(out)])
+        secs = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in kernels.KERNELS}
+        want = {k: PER_ENCODE[k] + DDIM_STEPS * PER_STEP[k] for k in PER_STEP}
+        print(f"  cli ddim-{DDIM_STEPS} int8_matmul: {secs:.3f} s including "
+              f"model build, {len(results)} samples, launches {counts}")
+        check(counts == want, f"cli: launches {counts} != {want}")
+        check(out.is_file() and len(results) > 0, "cli wrote no samples")
+        check(all(r.ndim == 2 and r.shape[1] == 8
+                  and in_angle_range(torch, r) for r in results),
+              "cli samples malformed")
+    del model8
+
+    # 7 ---------------------------------------------------------------
+    phase("7. kernel timings (device ms per call, L2-warm, bf16)")
+    record = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    timed_attn = [attn_cases[0], attn_cases[1], attn_cases[2]]
+    for i, (label, lq, lk, with_table, _) in enumerate(timed_attn):
+        q, k, v, mask, tab = attention_inputs(torch, gen, lq, lk,
+                                              torch.bfloat16, with_table,
+                                              False)
+        kw = dict(num_heads=HEADS, max_pos=MAX_POS)
+        q4, k4, v4 = (t.view(B, -1, HEADS, HEAD_DIM).transpose(1, 2)
+                      for t in (q, k, v))
+        bias = mask[:, None, None, :]
+        if with_table:
+            idx = (torch.arange(lq, device="cuda")[:, None]
+                   - torch.arange(lk, device="cuda")[None, :] + MAX_POS - 1)
+            bias = bias + torch.einsum("bhqd,qkd->bhqk", q4.float(),
+                                       tab.float()[idx]) / math.sqrt(HEAD_DIM)
+        bias = bias.to(torch.bfloat16)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        ms, host = time_call(
+            torch, lambda: kernels.fused_attention(q, k, v, mask, tab, **kw),
+            iters=200)
+        plain_ms, _ = time_call(
+            torch, lambda: kernels.attention_plain(q, k, v, mask, tab, **kw),
+            iters=30)
+        lib_ms, _ = time_call(
+            torch, lambda: sdpa(q4, k4, v4, attn_mask=bias), iters=100)
+        nbytes, ops = attention_cost(lq, lk, with_table, 2)
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        print(f"  attention {label}: kernel {ms * 1e3:.2f} us (host "
+              f"{host * 1e3:.1f} us per call), plain {plain_ms * 1e3:.2f} "
+              f"us, sdpa {lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+              f"by {b_by} ({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)",
+              flush=True)
+        if i == 0:
+            record.append(dict(
+                name="fused_attention", route="cuda",
+                source="e3diff_tpu_torch/csrc/attention.cu",
+                replaces="e3diff_tpu/ops/pallas_kernels.py:110",
+                launches=main_counts["fused_attention"],
+                max_abs_err=worst["fused_attention"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=f"{label} bf16"))
+    for i, rows in enumerate((B * L_LIG, B * L_REC)):
+        x, w, b, res, eps = ln_inputs(torch, gen, rows, torch.bfloat16,
+                                      True, True)
+        ln = torch.nn.functional.layer_norm
+        w16, b16 = w.to(x.dtype), b.to(x.dtype)
+        ms, host = time_call(
+            torch, lambda: kernels.fused_layernorm(x, w, b, res, eps=eps),
+            iters=200)
+        plain_ms, _ = time_call(
+            torch, lambda: kernels.layernorm_plain(x, w, b, res, eps=eps),
+            iters=30)
+        lib_ms, _ = time_call(
+            torch, lambda: ln(x + res, (HIDDEN,), w16, b16, eps), iters=100)
+        nbytes, ops = ln_cost(rows, True, True, 2)
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        label = f"{rows}x{HIDDEN} +residual +affine"
+        print(f"  layernorm {label}: kernel {ms * 1e3:.2f} us (host "
+              f"{host * 1e3:.1f} us per call), plain {plain_ms * 1e3:.2f} "
+              f"us, F.layer_norm(x + r) {lib_ms * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.2f} MB)",
+              flush=True)
+        if i == 0:
+            record.append(dict(
+                name="fused_layernorm", route="cuda",
+                source="e3diff_tpu_torch/csrc/layernorm.cu",
+                replaces="e3diff_tpu/ops/pallas_kernels.py:168",
+                launches=main_counts["fused_layernorm"],
+                max_abs_err=worst["fused_layernorm"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=f"{label} bf16"))
+
+    if args.profile:
+        phase("profile: DDIM-25 int8_matmul, torch.profiler")
+        profile_sampler(torch, model, diffusion, batch,
+                        make_structure_sampler, cast_inference_params,
+                        StructureDenoiser, enc, dec, Path(args.profile))
+
+    print(f"\nsampler seconds: {json.dumps(seconds)}")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": record}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def profile_sampler(torch, model, diffusion, batch, make_structure_sampler,
+                    cast_inference_params, StructureDenoiser, enc, dec,
+                    out: Path):
+    """Device busy share and the kernels by device time over one DDIM-25
+    run with int8 storage; the chrome trace goes to ``out``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m = StructureDenoiser(enc, dec, device="cuda", seed=None)
+    m.load_state_dict(model.state_dict(), strict=True)
+    cast_inference_params(m, "int8_matmul")
+    run = make_structure_sampler(m, diffusion, sampler="ddim",
+                                 ddim_steps=DDIM_STEPS,
+                                 return_trajectory=False)
+    run(batch, generator=torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(batch, generator=torch.Generator(device="cuda").manual_seed(3))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host ops; their kernels are listed on their own
+        dev = getattr(e, "device_time_total",
+                      getattr(e, "cuda_time_total", 0))
+        rows.append((dev, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"  wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+          f"({100 * busy / wall_us:.1f}%), idle "
+          f"{100 * (1 - busy / wall_us):.1f}%")
+    for dev, count, key in rows[:15]:
+        print(f"  {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "ddim25_int8_trace.json"))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

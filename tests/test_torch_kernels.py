@@ -1,0 +1,114 @@
+"""The port's kernel module (e3diff_tpu_torch/ops/kernels.py) against the
+JAX package's Pallas kernels in interpret mode, on the CPU.
+
+On the CPU the wrappers run their plain versions; these tests hold those
+to the Pallas bodies (f32, atol 2e-5 / rtol 1e-4 as
+tests/test_pallas_kernels.py does), check the wrappers' argument checks,
+and that a wrapper never falls back to the plain version for a tensor
+that is not on the CPU. The CUDA kernels themselves are held against the
+plain versions on the card by chip_smoke.py.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from e3diff_tpu.ops import pallas_kernels as pk
+from e3diff_tpu_torch.ops import kernels
+
+B, LQ, LK, H, D = 8, 16, 32, 4, 64
+F = H * D
+MAX_POS = 32
+
+
+def _inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, LQ, F)).astype(np.float32)
+    k = rng.normal(size=(B, LK, F)).astype(np.float32)
+    v = rng.normal(size=(B, LK, F)).astype(np.float32)
+    mask = np.zeros((B, LK), np.float32)
+    mask[:, 20:] = -10000.0
+    table = rng.normal(size=(2 * MAX_POS - 1, D)).astype(np.float32)
+    return q, k, v, mask, table
+
+
+def _pe(table, lq, lk):
+    idx = np.arange(lq)[:, None] - np.arange(lk)[None, :] + MAX_POS - 1
+    return table[idx]                       # (Lq, Lk, D), as blocks.py builds it
+
+
+@pytest.mark.parametrize("with_table", [False, True])
+def test_attention_plain_matches_pallas(with_table):
+    q, k, v, mask, table = _inputs()
+    want = np.asarray(pk.fused_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+        jnp.asarray(_pe(table, LQ, LK)) if with_table else None,
+        num_heads=H, block_b=4, interpret=True))
+    before = kernels.fused_attention.launches
+    got = kernels.fused_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(mask), torch.from_numpy(table) if with_table else None,
+        num_heads=H, max_pos=MAX_POS)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-4)
+    assert kernels.fused_attention.launches == before  # CPU: plain version
+
+
+def test_attention_masked_columns_ignored():
+    q, k, v, mask, table = _inputs(seed=1)
+    args = dict(num_heads=H, max_pos=MAX_POS)
+    t = torch.from_numpy
+    out1 = kernels.fused_attention(t(q), t(k), t(v), t(mask), t(table), **args)
+    k2, v2 = k.copy(), v.copy()
+    k2[:, 20:] = 99.0
+    v2[:, 20:] = -99.0
+    out2 = kernels.fused_attention(t(q), t(k2), t(v2), t(mask), t(table),
+                                   **args)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("affine", [False, True])
+def test_layernorm_plain_matches_pallas(residual, affine):
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(B, LQ, F)).astype(np.float32)
+    res = rng.normal(size=(B, LQ, F)).astype(np.float32)
+    scale = rng.normal(size=(F,)).astype(np.float32)
+    bias = rng.normal(size=(F,)).astype(np.float32)
+    eps = 1e-12 if affine else 1e-5
+    # the Pallas kernel always applies an affine: identity for affine-free
+    p_scale = scale if affine else np.ones(F, np.float32)
+    p_bias = bias if affine else np.zeros(F, np.float32)
+    want = np.asarray(pk.fused_layernorm(
+        jnp.asarray(x), jnp.asarray(p_scale), jnp.asarray(p_bias),
+        residual=jnp.asarray(res) if residual else None, eps=eps,
+        interpret=True))
+    got = kernels.fused_layernorm(
+        torch.from_numpy(x),
+        torch.from_numpy(scale) if affine else None,
+        torch.from_numpy(bias) if affine else None,
+        torch.from_numpy(res) if residual else None, eps=eps)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-4)
+
+
+def test_attention_rejects_lengths_beyond_max_pos():
+    q, k, v, mask, table = _inputs()
+    t = torch.from_numpy
+    with pytest.raises(ValueError, match="max_pos"):
+        kernels.fused_attention(t(q), t(k), t(v), t(mask), None,
+                                num_heads=H, max_pos=LK - 1)
+    with pytest.raises(ValueError, match="table"):
+        kernels.fused_attention(t(q), t(k), t(v), t(mask), t(table[:-1]),
+                                num_heads=H, max_pos=MAX_POS)
+
+
+def test_wrappers_do_not_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU gets the kernel or an error, never
+    the plain version (meta tensors stand in for a device here)."""
+    q = torch.empty(2, 4, F, device="meta")
+    mask = torch.empty(2, 4, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.fused_attention(q, q, q, mask, num_heads=H, max_pos=8)
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.fused_layernorm(q, eps=1e-5)
+
