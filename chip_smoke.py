@@ -4,10 +4,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``e3diff_tpu_torch/csrc`` with
-   ``nvcc`` for sm_90a, printing the build seconds and ``ptxas`` resources;
+   ``nvcc`` for sm_90a, printing the build seconds, ``ptxas`` resources
+   and, where ``cuobjdump`` exists, each kernel's tensor-core (HMMA) and
+   16-byte load and store instructions in the SASS;
 3. hold each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the shapes the structure sampler gives it (and the f32
-   attention also against a float64 softmax reference);
+   and bf16, at the shapes the structure sampler gives it and at the edges
+   of its contract (and the f32 attention also against a float64 softmax
+   reference);
 4. build the full-width 146M ``StructureDenoiser`` with seeded random
    weights and bf16 compute, and check its parameter count;
 5. one ``decode`` through the kernels against the same ``decode`` through
@@ -18,7 +21,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    finite and in [-pi, pi) and that the kernels were launched exactly
    13 + 29 times per encode and 25 + 41 times per reverse step;
 7. each kernel's device time beside its plain version, a one-call PyTorch
-   yardstick and its bound.
+   yardstick and its bound, at each main-path shape.
 
 The last three lines are the kernels' JSON record, the card, and
 ``{"ok": true, "device": {...}}``.
@@ -38,12 +41,16 @@ import argparse
 import contextlib
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -73,6 +80,49 @@ LN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 # through 12 layers, so the outputs are held to 3% in relative L2 norm.
 DECODE_F32_ATOL = 1e-3
 DECODE_BF16_REL_L2 = 3e-2
+
+
+class AttnCase(NamedTuple):
+    label: str
+    b: int
+    lq: int
+    lk: int
+    max_pos: int
+    table: bool
+    ragged: bool
+
+
+# the main path's three shapes first (phase 7 times them), then the edges
+# of the kernel's contract: Lq != Lk, lengths off the 16-row tiles, the
+# 128 limit, CFG's 2B, ragged masks (each with single-key rows)
+ATTN_CASES = [
+    AttnCase("decoder self 32x16x16 +table", B, L_LIG, L_LIG, MAX_POS, True,
+             False),
+    AttnCase("cross 32x16x64", B, L_LIG, L_REC, MAX_POS, False, False),
+    AttnCase("encoder self 32x64x64 +table", B, L_REC, L_REC, MAX_POS, True,
+             False),
+    AttnCase("ragged 32x16x50 +table, masked tail", B, L_LIG, 50, MAX_POS,
+             True, True),
+    AttnCase("edge 32x1x1 +table", B, 1, 1, MAX_POS, True, False),
+    AttnCase("edge 32x1x1", B, 1, 1, MAX_POS, False, False),
+    AttnCase("edge 32x5x13 +table, ragged", B, 5, 13, MAX_POS, True, True),
+    AttnCase("edge 32x17x64 +table", B, 17, L_REC, MAX_POS, True, False),
+    AttnCase("edge 32x17x64, ragged", B, 17, L_REC, MAX_POS, False, True),
+    AttnCase("limit 32x128x128 +table max_pos 128, ragged", B, 128, 128, 128,
+             True, True),
+    AttnCase("limit 32x128x128", B, 128, 128, 128, False, False),
+    AttnCase("cfg 64x16x16 +table, ragged", 2 * B, L_LIG, L_LIG, MAX_POS,
+             True, True),
+    AttnCase("cfg 64x16x64, ragged", 2 * B, L_LIG, L_REC, MAX_POS, False,
+             True),
+]
+# (rows, width): the main path's two, fewer rows than a block holds, and a
+# width that takes the second (scalar) kernel
+LN_CASES = [(B * L_LIG, HIDDEN), (B * L_REC, HIDDEN), (1, HIDDEN),
+            (3, HIDDEN), (37, 96)]
+# the main-path shapes phase 7 times
+TIMED_ATTN = ATTN_CASES[:3]
+TIMED_LN = [B * L_LIG, B * L_REC]
 
 
 def fail(msg: str):
@@ -106,7 +156,10 @@ def time_call(torch, fn, iters: int, reps: int = 7) -> tuple[float, float]:
 
     Device: CUDA events around ``iters`` back-to-back calls, queued behind
     a sleep kernel long enough for the host to enqueue them all, so the
-    host's launch cost is hidden. Host: wall time of enqueueing one call."""
+    host's launch cost is hidden. A repetition in which the device reached
+    the start event before the host had enqueued every call may hold idle
+    gaps (a host stalled on its shared cores): it is taken again behind a
+    sleep twice as long. Host: wall time of enqueueing one call."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -117,16 +170,21 @@ def time_call(torch, fn, iters: int, reps: int = 7) -> tuple[float, float]:
     torch.cuda.synchronize()
     cycles = int((2.0 * host_ms * iters + 1.0) * _CYCLES_PER_MS)
     dev, host = [], []
-    for _ in range(reps):
+    while len(dev) < reps:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda._sleep(cycles)
         start.record()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
-        host.append((time.perf_counter() - t0) * 1e3 / iters)
+        host_rep = (time.perf_counter() - t0) * 1e3 / iters
+        drained = start.query()  # the queue may have run dry
         end.record()
         end.synchronize()
+        if drained and cycles < 64 * _CYCLES_PER_MS * (host_ms * iters + 1):
+            cycles *= 2
+            continue
+        host.append(host_rep)
         dev.append(start.elapsed_time(end) / iters)
     return statistics.median(dev), statistics.median(host)
 
@@ -147,6 +205,15 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def clock_line() -> str:
+    """SM clock, its maximum, power draw and temperature, as nvidia-smi
+    reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60).stdout.strip()
+
+
 def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
@@ -163,53 +230,58 @@ def compare(label, got, want, atol, rtol) -> float:
     return worst
 
 
-def attention_inputs(torch, gen, lq, lk, dtype, with_table, ragged):
+def attention_inputs(torch, gen, case, dtype):
+    """Seeded q, k, v, mask and table for one ``AttnCase``. A ragged mask
+    keeps a random prefix of 1..Lk keys, and a single key in every fourth
+    batch row."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    q, k, v = randn(B, lq, HIDDEN), randn(B, lk, HIDDEN), randn(B, lk, HIDDEN)
-    mask = torch.zeros(B, lk, device="cuda")
-    if ragged:
-        lengths = torch.randint(1, lk + 1, (B,), generator=gen, device="cuda")
+    b, lq, lk = case.b, case.lq, case.lk
+    q, k, v = randn(b, lq, HIDDEN), randn(b, lk, HIDDEN), randn(b, lk, HIDDEN)
+    mask = torch.zeros(b, lk, device="cuda")
+    if case.ragged:
+        lengths = torch.randint(1, lk + 1, (b,), generator=gen, device="cuda")
+        lengths[::4] = 1
         keep = torch.arange(lk, device="cuda")[None, :] < lengths[:, None]
         mask = mask.masked_fill(~keep, -10000.0)
-    table = randn(2 * MAX_POS - 1, HEAD_DIM) if with_table else None
+    table = randn(2 * case.max_pos - 1, HEAD_DIM) if case.table else None
     return q, k, v, mask, table
 
 
-def attention_f64(torch, q, k, v, mask, table):
+def attention_f64(torch, q, k, v, mask, table, max_pos):
     """The attention core in float64 with torch.softmax, independent of
     both the kernel and its plain version."""
-    lq, lk = q.shape[1], k.shape[1]
-    q4, k4, v4 = (t.double().view(B, -1, HEADS, HEAD_DIM) for t in (q, k, v))
+    b, lq, lk = q.shape[0], q.shape[1], k.shape[1]
+    q4, k4, v4 = (t.double().view(b, -1, HEADS, HEAD_DIM) for t in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", q4, k4)
     if table is not None:
         idx = (torch.arange(lq, device="cuda")[:, None]
-               - torch.arange(lk, device="cuda")[None, :] + MAX_POS - 1)
+               - torch.arange(lk, device="cuda")[None, :] + max_pos - 1)
         s = s + torch.einsum("bqhd,qkd->bhqk", q4, table.double()[idx])
     p = torch.softmax(s / math.sqrt(HEAD_DIM)
                       + mask.double()[:, None, None, :], dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v4).reshape(B, lq, HIDDEN)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v4).reshape(b, lq, HIDDEN)
 
 
-def ln_inputs(torch, gen, rows, dtype, residual, affine):
-    x = torch.randn(rows, HIDDEN, generator=gen, device="cuda").to(dtype)
-    res = (torch.randn(rows, HIDDEN, generator=gen, device="cuda").to(dtype)
+def ln_inputs(torch, gen, rows, width, dtype, residual, affine):
+    x = torch.randn(rows, width, generator=gen, device="cuda").to(dtype)
+    res = (torch.randn(rows, width, generator=gen, device="cuda").to(dtype)
            if residual else None)
     w = b = None
     if affine:
-        w = 1 + 0.1 * torch.randn(HIDDEN, generator=gen, device="cuda")
-        b = 0.1 * torch.randn(HIDDEN, generator=gen, device="cuda")
+        w = 1 + 0.1 * torch.randn(width, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(width, generator=gen, device="cuda")
     return x, w, b, res, (1e-12 if affine else 1e-5)
 
 
-def attention_cost(lq, lk, with_table, elem) -> tuple[int, int]:
+def attention_cost(b, lq, lk, with_table, elem) -> tuple[int, int]:
     """Bytes (each input read once, the output written once) and
     operations (QK^T, P V and the relative bias, 2 per multiply-add)."""
     table_rows = (lq + lk - 1) if with_table else 0
-    nbytes = (elem * (2 * B * lq * HIDDEN + 2 * B * lk * HIDDEN
-                      + table_rows * HEAD_DIM) + 4 * B * lk)
-    ops = 2 * B * HEADS * lq * lk * HEAD_DIM * (3 if with_table else 2)
+    nbytes = (elem * (2 * b * lq * HIDDEN + 2 * b * lk * HIDDEN
+                      + table_rows * HEAD_DIM) + 4 * b * lk)
+    ops = 2 * b * HEADS * lq * lk * HEAD_DIM * (3 if with_table else 2)
     return nbytes, ops
 
 
@@ -217,6 +289,60 @@ def ln_cost(rows, residual, affine, elem) -> tuple[int, int]:
     nbytes = elem * rows * HIDDEN * (3 if residual else 2) \
         + (8 * HIDDEN if affine else 0)
     return nbytes, 8 * rows * HIDDEN
+
+
+def sass_summary(nvcc: str, lib_path: Path) -> dict[str, Counter] | None:
+    """Per kernel function of the library, counts of its tensor-core,
+    ldmatrix and global load/store instructions in ``cuobjdump -sass``;
+    None where the toolkit has no cuobjdump."""
+    exe = Path(nvcc).parent / "cuobjdump"
+    exe = str(exe) if exe.is_file() else shutil.which("cuobjdump")
+    if exe is None:
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    per, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            per[fn] = Counter()
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?((?:HMMA|LDSM|LDGSTS|LDG|STG)"
+                      r"[A-Z0-9_.]*)", line)
+        if fn is not None and m:
+            per[fn][m.group(1)] += 1
+    return {kernel_name(fn): ops for fn, ops in per.items()}
+
+
+def kernel_name(mangled: str) -> str:
+    """The mangled name from the kernel's own identifier on, without its
+    namespace: ``attention_mma_kernelILi4ELb1EEEvNS_4ArgsEf`` for
+    ``attention_mma_kernel<4, true>(Args, float)``. The qualified name
+    after ``_ZN`` (or ``_Z``) is a run of identifiers, each after its
+    length in digits."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while m := re.compile(r"\d+").match(mangled, pos):
+        pos = m.end() + int(m.group())
+        if mangled[m.end():pos].endswith("_kernel"):
+            return mangled[m.end():]
+    return mangled
+
+
+def print_sass(per: dict[str, Counter]) -> None:
+    for fn, ops in sorted(per.items()):
+        wide_ld = sum(n for op, n in ops.items()
+                      if op.startswith(("LDG", "LDGSTS")) and ".128" in op)
+        narrow_ld = sum(n for op, n in ops.items()
+                        if op.startswith("LDG") and not op.startswith("LDGSTS")
+                        and ".128" not in op)
+        wide_st = sum(n for op, n in ops.items()
+                      if op.startswith("STG") and ".128" in op)
+        hmma = sum(n for op, n in ops.items() if op.startswith("HMMA"))
+        ldsm = sum(n for op, n in ops.items() if op.startswith("LDSM"))
+        print(f"  {fn}: HMMA {hmma}, LDSM {ldsm}, 16-byte global loads "
+              f"{wide_ld}, narrower global loads {narrow_ld}, 16-byte "
+              f"stores {wide_st}")
 
 
 def bound(nbytes, ops, dtype_name) -> tuple[float, str]:
@@ -341,50 +467,52 @@ def main(argv=None) -> int:
     check(kernels_lib is not None, "kernel library did not load")
     print(f"built {lib_path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
+    sass = sass_summary(_build._nvcc(), lib_path)
+    if sass is None:
+        print("cuobjdump not found: no SASS summary")
+    else:
+        print_sass(sass)
+        mma_fns = [fn for fn in sass if "attention_mma_kernel" in fn]
+        check(len(mma_fns) > 0 and all(
+            any(op.startswith("HMMA") for op in sass[fn]) for fn in mma_fns),
+            "the bf16 attention kernel has no HMMA instruction")
     _CYCLES_PER_MS = _cycles_per_ms(torch)
 
     # 3 ---------------------------------------------------------------
     phase("3. each kernel against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    attn_cases = [  # (label, Lq, Lk, table, ragged mask)
-        ("decoder self 32x16x16 +table", L_LIG, L_LIG, True, False),
-        ("cross 32x16x64", L_LIG, L_REC, False, False),
-        ("encoder self 32x64x64 +table", L_REC, L_REC, True, False),
-        ("ragged 32x16x50 +table, masked tail", L_LIG, 50, True, True),
-    ]
-    worst = {"fused_attention": 0.0, "fused_layernorm": 0.0}
+    bf16_err = {}  # (kernel, shape) -> bf16 max abs error, for phase 7
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for label, lq, lk, table, ragged in attn_cases:
-            q, k, v, mask, tab = attention_inputs(torch, gen, lq, lk, dtype,
-                                                  table, ragged)
-            kw = dict(num_heads=HEADS, max_pos=MAX_POS)
+        for case in ATTN_CASES:
+            q, k, v, mask, tab = attention_inputs(torch, gen, case, dtype)
+            kw = dict(num_heads=HEADS, max_pos=case.max_pos)
             got = kernels.fused_attention(q, k, v, mask, tab, **kw)
             want = kernels.attention_plain(q, k, v, mask, tab, **kw)
             torch.cuda.synchronize()
-            err = compare(f"attention {label} {dname}", got, want,
+            err = compare(f"attention {case.label} {dname}", got, want,
                           *ATTN_TOL[dname])
             if dtype == torch.float32:
-                compare(f"attention {label} {dname} vs float64", got,
-                        attention_f64(torch, q, k, v, mask, tab),
+                compare(f"attention {case.label} {dname} vs float64", got,
+                        attention_f64(torch, q, k, v, mask, tab,
+                                      case.max_pos),
                         *ATTN_TOL[dname])
-            if dtype == torch.bfloat16:
-                worst["fused_attention"] = max(worst["fused_attention"], err)
-        for rows in (B * L_LIG, B * L_REC):
+            else:
+                bf16_err["fused_attention", case.label] = err
+        for rows, width in LN_CASES:
             for residual in (False, True):
                 for affine in (False, True):
-                    x, w, b, res, eps = ln_inputs(torch, gen, rows, dtype,
-                                                  residual, affine)
+                    x, w, b, res, eps = ln_inputs(torch, gen, rows, width,
+                                                  dtype, residual, affine)
                     got = kernels.fused_layernorm(x, w, b, res, eps=eps)
                     want = kernels.layernorm_plain(x, w, b, res, eps=eps)
                     torch.cuda.synchronize()
-                    label = (f"layernorm {rows}x{HIDDEN}"
+                    label = (f"layernorm {rows}x{width}"
                              f"{' +residual' if residual else ''}"
                              f"{' +affine' if affine else ''} {dname}")
                     err = compare(label, got, want, *LN_TOL[dname])
-                    if dtype == torch.bfloat16:
-                        worst["fused_layernorm"] = max(
-                            worst["fused_layernorm"], err)
+                    if dtype == torch.bfloat16 and residual and affine:
+                        bf16_err["fused_layernorm", (rows, width)] = err
 
     # 4 ---------------------------------------------------------------
     phase("4. the full-width StructureDenoiser (bf16 compute)")
@@ -509,24 +637,26 @@ def main(argv=None) -> int:
 
     # 7 ---------------------------------------------------------------
     phase("7. kernel timings (device ms per call, L2-warm, bf16)")
+    print(f"  clocks before: {clock_line()}")
     record = []
     gen = torch.Generator(device="cuda").manual_seed(5)
-    timed_attn = [attn_cases[0], attn_cases[1], attn_cases[2]]
-    for i, (label, lq, lk, with_table, _) in enumerate(timed_attn):
-        q, k, v, mask, tab = attention_inputs(torch, gen, lq, lk,
-                                              torch.bfloat16, with_table,
-                                              False)
-        kw = dict(num_heads=HEADS, max_pos=MAX_POS)
-        q4, k4, v4 = (t.view(B, -1, HEADS, HEAD_DIM).transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for case in TIMED_ATTN:
+        q, k, v, mask, tab = attention_inputs(torch, gen, case,
+                                              torch.bfloat16)
+        kw = dict(num_heads=HEADS, max_pos=case.max_pos)
+        q4, k4, v4 = (t.view(case.b, -1, HEADS, HEAD_DIM).transpose(1, 2)
                       for t in (q, k, v))
+        # SDPA's bias is built here, outside the timed call: its time is a
+        # lower bound for the library on the shapes with a table
         bias = mask[:, None, None, :]
-        if with_table:
-            idx = (torch.arange(lq, device="cuda")[:, None]
-                   - torch.arange(lk, device="cuda")[None, :] + MAX_POS - 1)
+        if case.table:
+            idx = (torch.arange(case.lq, device="cuda")[:, None]
+                   - torch.arange(case.lk, device="cuda")[None, :]
+                   + case.max_pos - 1)
             bias = bias + torch.einsum("bhqd,qkd->bhqk", q4.float(),
                                        tab.float()[idx]) / math.sqrt(HEAD_DIM)
         bias = bias.to(torch.bfloat16)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         ms, host = time_call(
             torch, lambda: kernels.fused_attention(q, k, v, mask, tab, **kw),
             iters=200)
@@ -535,25 +665,24 @@ def main(argv=None) -> int:
             iters=30)
         lib_ms, _ = time_call(
             torch, lambda: sdpa(q4, k4, v4, attn_mask=bias), iters=100)
-        nbytes, ops = attention_cost(lq, lk, with_table, 2)
+        nbytes, ops = attention_cost(case.b, case.lq, case.lk, case.table, 2)
         b_ms, b_by = bound(nbytes, ops, "bfloat16")
-        print(f"  attention {label}: kernel {ms * 1e3:.2f} us (host "
+        print(f"  attention {case.label}: kernel {ms * 1e3:.2f} us (host "
               f"{host * 1e3:.1f} us per call), plain {plain_ms * 1e3:.2f} "
               f"us, sdpa {lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
               f"by {b_by} ({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)",
               flush=True)
-        if i == 0:
-            record.append(dict(
-                name="fused_attention", route="cuda",
-                source="e3diff_tpu_torch/csrc/attention.cu",
-                replaces="e3diff_tpu/ops/pallas_kernels.py:110",
-                launches=main_counts["fused_attention"],
-                max_abs_err=worst["fused_attention"], ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, shape=f"{label} bf16"))
-    for i, rows in enumerate((B * L_LIG, B * L_REC)):
-        x, w, b, res, eps = ln_inputs(torch, gen, rows, torch.bfloat16,
-                                      True, True)
+        record.append(dict(
+            name="fused_attention", route="cuda",
+            source="e3diff_tpu_torch/csrc/attention.cu",
+            replaces="e3diff_tpu/ops/pallas_kernels.py:110",
+            launches=main_counts["fused_attention"],
+            max_abs_err=bf16_err["fused_attention", case.label], ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, shape=f"{case.label} bf16"))
+    for rows in TIMED_LN:
+        x, w, b, res, eps = ln_inputs(torch, gen, rows, HIDDEN,
+                                      torch.bfloat16, True, True)
         ln = torch.nn.functional.layer_norm
         w16, b16 = w.to(x.dtype), b.to(x.dtype)
         ms, host = time_call(
@@ -572,15 +701,16 @@ def main(argv=None) -> int:
               f"us, F.layer_norm(x + r) {lib_ms * 1e3:.2f} us, bound "
               f"{b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.2f} MB)",
               flush=True)
-        if i == 0:
-            record.append(dict(
-                name="fused_layernorm", route="cuda",
-                source="e3diff_tpu_torch/csrc/layernorm.cu",
-                replaces="e3diff_tpu/ops/pallas_kernels.py:168",
-                launches=main_counts["fused_layernorm"],
-                max_abs_err=worst["fused_layernorm"], ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, shape=f"{label} bf16"))
+        record.append(dict(
+            name="fused_layernorm", route="cuda",
+            source="e3diff_tpu_torch/csrc/layernorm.cu",
+            replaces="e3diff_tpu/ops/pallas_kernels.py:168",
+            launches=main_counts["fused_layernorm"],
+            max_abs_err=bf16_err["fused_layernorm", (rows, HIDDEN)], ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, shape=f"{label} bf16"))
+
+    print(f"  clocks after: {clock_line()}")
 
     if args.profile:
         phase("profile: DDIM-25 int8_matmul, torch.profiler")
@@ -633,6 +763,13 @@ def profile_sampler(torch, model, diffusion, batch, make_structure_sampler,
           f"{100 * (1 - busy / wall_us):.1f}%")
     for dev, count, key in rows[:15]:
         print(f"  {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
+    ours = [r for r in rows
+            if re.search(r"\b(attention|layernorm)_\w+_kernel", r[2])]
+    print(f"  the port's kernels: {sum(r[0] for r in ours) / 1e3:.3f} ms "
+          f"of device time in {sum(r[1] for r in ours)} calls")
+    for dev, count, key in ours:
+        print(f"  {dev / 1e3:9.3f} ms {count:7d}x  {dev / count:7.2f} us "
+              f"per call  {key[:70]}")
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "ddim25_int8_trace.json"))
 

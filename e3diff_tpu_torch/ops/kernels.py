@@ -39,6 +39,14 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: non-contiguous input {tuple(t.shape)}")
 
 
+def _check_aligned16(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: input {tuple(t.shape)} is not 16-byte "
+                             "aligned; the bf16 kernel copies 16 bytes at a "
+                             "time")
+
+
 def _raise_on_error(name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
@@ -91,7 +99,9 @@ def fused_attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
     (0 keep, -10000 drop), float32; rel_table: optional (2*max_pos-1, D)
     HF relative_key distance table in q's dtype, row l - r + max_pos - 1
     biasing query l against key r (shared by all heads). Returns
-    (B, Lq, H*D) in q.dtype.
+    (B, Lq, H*D) in q.dtype. On the card, bf16 q, k, v and the table must
+    start at 16-byte aligned addresses (any fresh tensor does; a view at
+    an odd offset raises).
     """
     b, lq, f = q.shape
     lk = k.shape[1]
@@ -131,6 +141,9 @@ def fused_attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
     tensors = [q, k, v, mask_add] + ([rel_table] if rel_table is not None
                                      else [])
     _check_cuda("fused_attention", *tensors)
+    if q.dtype == torch.bfloat16:
+        _check_aligned16("fused_attention", q, k, v,
+                         *([rel_table] if rel_table is not None else []))
     out = torch.empty_like(q)
     lib = _build.load_library()
     code = lib.e3d_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(mask_add),
