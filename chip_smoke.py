@@ -21,7 +21,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    finite and in [-pi, pi) and that the kernels were launched exactly
    13 + 29 times per encode and 25 + 41 times per reverse step;
 7. each kernel's device time beside its plain version, a one-call PyTorch
-   yardstick and its bound, at each main-path shape.
+   yardstick and its bound, at each main-path shape;
+8. the design request at full width: the 61M ``SequenceDenoiser`` (its
+   parameter count, one forward through the kernels against the plain
+   versions), the batched NERF on the card against the float64 oracle,
+   then ``DesignEngine`` with both models, int8_matmul and f32 weight
+   storage, on 32 pocket records (ligand bucket 16, receptor 64,
+   structure DDIM-25, sequence D3PM over 50 steps with the uniform
+   transition) and on 5 records padded to batch bucket 8, and the
+   pipeline CLI -- checking every sequence, every PDB (4 atoms a residue,
+   finite, ideal bond lengths) and the exact launches of both kernels in
+   each stage (13 + 29 per encode and 25 + 41 per DDIM step; 15 + 32 per
+   sequence forward, 50 forwards), and printing seconds per design batch.
 
 The last three lines are the kernels' JSON record, the card, and
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +63,8 @@ from collections import Counter
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 
 # the main path: bench.py's structure-sampler shape
@@ -64,6 +77,13 @@ HIDDEN = HEADS * HEAD_DIM
 # kernel calls of one forward (models/structure.py, models/blocks.py)
 PER_ENCODE = {"fused_attention": 13, "fused_layernorm": 29}
 PER_STEP = {"fused_attention": 25, "fused_layernorm": 41}
+# one SequenceDenoiser forward (models/sequence.py): 4 embeddings (1 LN
+# each), 3 SELayer calls (1 attention + 3 LN each), 6 layers (2 + 3 each),
+# the head (1 LN)
+PER_SEQ_FORWARD = {"fused_attention": 15, "fused_layernorm": 32}
+SEQ_T = 50                   # D3PM steps: 49 loop forwards + the final one
+SEQUENCE_PARAMS = 60_990_100  # jax.eval_shape of the JAX model (CPU tests)
+DESIGN_BATCH, SMALL_BATCH = 32, 5   # the second pads to batch bucket 8
 
 # H100 SXM (NVIDIA data sheet, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -80,6 +100,19 @@ LN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 # through 12 layers, so the outputs are held to 3% in relative L2 norm.
 DECODE_F32_ATOL = 1e-3
 DECODE_BF16_REL_L2 = 3e-2
+# Rows whose every key is masked (dead batch slots): all scores sit near
+# -10^4, where an f32 step is 2^-10, so P carries a relative error of
+# about 1e-3 against float64 and a rounding flip between the kernel's fused
+# multiply-add and the plain version's two roundings moves the output by
+# up to ~1e-3 max|v|: such cases are held to 1e-2 in f32.
+ATTN_DEAD_F32_TOL = (1e-2, 1e-4)
+# NERF in f32 against the float64 oracle over 16 residues (the JAX
+# package's bound, tests/test_geometry.py); bond lengths of the device
+# coordinates, and of the PDB's, which rounds each coordinate to 1e-3
+# (a distance then moves by at most sqrt(3) 1e-3 more)
+NERF_ATOL = 2e-4
+BOND_ATOL = 1e-3
+PDB_BOND_ATOL = BOND_ATOL + math.sqrt(3) * 1e-3
 
 
 class AttnCase(NamedTuple):
@@ -90,6 +123,7 @@ class AttnCase(NamedTuple):
     max_pos: int
     table: bool
     ragged: bool
+    dead: bool = False   # the last 3 batch rows have every key masked
 
 
 # the main path's three shapes first (phase 7 times them), then the edges
@@ -114,6 +148,16 @@ ATTN_CASES = [
     AttnCase("cfg 64x16x16 +table, ragged", 2 * B, L_LIG, L_LIG, MAX_POS,
              True, True),
     AttnCase("cfg 64x16x64, ragged", 2 * B, L_LIG, L_REC, MAX_POS, False,
+             True),
+    # the sequence model under CFG: its receptor fuse (64 keys, a table)
+    AttnCase("cfg 64x64x64 +table, ragged", 2 * B, L_REC, L_REC, MAX_POS,
+             True, True),
+    # a batch bucket of 8 holding 5 requests: 3 dead slots, all keys masked
+    AttnCase("dead slots 8x16x16 +table", 8, L_LIG, L_LIG, MAX_POS, True,
+             True, True),
+    AttnCase("dead slots 8x64x64 +table", 8, L_REC, L_REC, MAX_POS, True,
+             True, True),
+    AttnCase("dead slots 8x16x64", 8, L_LIG, L_REC, MAX_POS, False, True,
              True),
 ]
 # (rows, width): the main path's two, fewer rows than a block holds, and a
@@ -233,7 +277,7 @@ def compare(label, got, want, atol, rtol) -> float:
 def attention_inputs(torch, gen, case, dtype):
     """Seeded q, k, v, mask and table for one ``AttnCase``. A ragged mask
     keeps a random prefix of 1..Lk keys, and a single key in every fourth
-    batch row."""
+    batch row; a dead row masks every key."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -245,6 +289,8 @@ def attention_inputs(torch, gen, case, dtype):
         lengths[::4] = 1
         keep = torch.arange(lk, device="cuda")[None, :] < lengths[:, None]
         mask = mask.masked_fill(~keep, -10000.0)
+    if case.dead:
+        mask[-3:] = -10000.0
     table = randn(2 * case.max_pos - 1, HEAD_DIM) if case.table else None
     return q, k, v, mask, table
 
@@ -351,38 +397,57 @@ def bound(nbytes, ops, dtype_name) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# parameter counts of the blocks from their configs alone (Linears,
+# LayerNorms, distance tables), independent of the module code
+
+def _lin(i, o):
+    return i * o + o
+
+
+def _block(cfg, relative):
+    h = cfg.hidden_size
+    table = (2 * cfg.max_position_embeddings - 1) * cfg.head_dim
+    return 4 * _lin(h, h) + 2 * h + (table if relative else 0)
+
+
+def _selayer(cfg):
+    h, m = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
+    return (_lin(h, h) + _lin(h, 6 * h) + _block(cfg, True) + _lin(h, m)
+            + _lin(m, h))
+
+
+def _layer(cfg):
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    cross = _block(cfg, False) if cfg.add_cross_attention else 0
+    return _block(cfg, True) + cross + _lin(h, i) + _lin(i, h) + 2 * h
+
+
+def _emb(cfg, n_in):
+    return _lin(n_in, cfg.hidden_size) + 2 * cfg.hidden_size
+
+
+def _head(cfg, n_out):
+    h = cfg.hidden_size
+    return _lin(h, h) + 2 * h + _lin(h, n_out)
+
+
 def expected_param_count(enc, dec, n_features=8, n_aa=20) -> int:
-    """The StructureDenoiser's parameter count from its configs alone
-    (Linears, LayerNorms, distance tables, the Fourier W), independent of
-    the module code; at max_seq_len 64 it is the 146,214,664 values that
-    jax.eval_shape gives the JAX model."""
-    def lin(i, o):
-        return i * o + o
+    """The StructureDenoiser's parameter count (the Fourier W included);
+    at max_seq_len 64 it is the 146,214,664 values that jax.eval_shape
+    gives the JAX model."""
+    return (_emb(enc, n_features) + _emb(enc, n_aa) + _selayer(enc)
+            + enc.num_layers * _layer(enc)
+            + _emb(dec, n_features) + dec.hidden_size // 2 + _selayer(dec)
+            + dec.num_layers * _layer(dec) + _head(dec, n_features))
 
-    def block(cfg, relative):
-        h = cfg.hidden_size
-        table = (2 * cfg.max_position_embeddings - 1) * cfg.head_dim
-        return 4 * lin(h, h) + 2 * h + (table if relative else 0)
 
-    def selayer(cfg):
-        h, m = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
-        return (lin(h, h) + lin(h, 6 * h) + block(cfg, True) + lin(h, m)
-                + lin(m, h))
-
-    def layer(cfg):
-        h, i = cfg.hidden_size, cfg.intermediate_size
-        cross = block(cfg, False) if cfg.add_cross_attention else 0
-        return block(cfg, True) + cross + lin(h, i) + lin(i, h) + 2 * h
-
-    def emb(cfg, n_in):
-        return lin(n_in, cfg.hidden_size) + 2 * cfg.hidden_size
-
-    h = dec.hidden_size
-    return (emb(enc, n_features) + emb(enc, n_aa) + selayer(enc)
-            + enc.num_layers * layer(enc)
-            + emb(dec, n_features) + h // 2 + selayer(dec)
-            + dec.num_layers * layer(dec)
-            + lin(h, h) + 2 * h + lin(h, n_features))
+def expected_sequence_param_count(enc, dec, n_features=8, n_aa=20) -> int:
+    """The SequenceDenoiser's: four embeddings, the one shared fuse
+    SELayer (quirk Q7), the decoder, decoder_normalize, the head and the
+    Fourier W; at max_seq_len 64 the 60,990,100 values of the JAX model."""
+    return (2 * _emb(enc, n_aa) + 2 * _emb(enc, n_features) + _selayer(enc)
+            + dec.num_layers * _layer(dec) + _selayer(dec) + _head(dec, n_aa)
+            + dec.hidden_size // 2)
 
 
 def make_batch(torch, gen):
@@ -402,6 +467,18 @@ def make_batch(torch, gen):
                                        device="cuda") * 2 - 1) * math.pi,
         "receptor_attn_mask": lengths_mask(16, L_REC, L_REC),
     }
+
+
+@contextlib.contextmanager
+def plain_versions(kernels):
+    """The models' kernel calls go to the plain PyTorch versions."""
+    saved = kernels.fused_attention, kernels.fused_layernorm
+    kernels.fused_attention = kernels.attention_plain
+    kernels.fused_layernorm = kernels.layernorm_plain
+    try:
+        yield
+    finally:
+        kernels.fused_attention, kernels.fused_layernorm = saved
 
 
 def in_angle_range(torch, x) -> bool:
@@ -490,13 +567,13 @@ def main(argv=None) -> int:
             got = kernels.fused_attention(q, k, v, mask, tab, **kw)
             want = kernels.attention_plain(q, k, v, mask, tab, **kw)
             torch.cuda.synchronize()
-            err = compare(f"attention {case.label} {dname}", got, want,
-                          *ATTN_TOL[dname])
+            tol = (ATTN_DEAD_F32_TOL if case.dead and dname == "float32"
+                   else ATTN_TOL[dname])
+            err = compare(f"attention {case.label} {dname}", got, want, *tol)
             if dtype == torch.float32:
                 compare(f"attention {case.label} {dname} vs float64", got,
                         attention_f64(torch, q, k, v, mask, tab,
-                                      case.max_pos),
-                        *ATTN_TOL[dname])
+                                      case.max_pos), *tol)
             else:
                 bf16_err["fused_attention", case.label] = err
         for rows, width in LN_CASES:
@@ -533,16 +610,6 @@ def main(argv=None) -> int:
     t_vec = torch.randint(0, T, (B,), generator=gen, device="cuda")
     x_t = wrap_angle(torch.randn(B, L_LIG, 8, generator=gen, device="cuda"))
 
-    @contextlib.contextmanager
-    def plain_versions():
-        saved = kernels.fused_attention, kernels.fused_layernorm
-        kernels.fused_attention = kernels.attention_plain
-        kernels.fused_layernorm = kernels.layernorm_plain
-        try:
-            yield
-        finally:
-            kernels.fused_attention, kernels.fused_layernorm = saved
-
     def one_decode(m):
         enc_out = m.encode_receptor(batch["receptor_seq"],
                                     batch["receptor_angles"],
@@ -556,7 +623,7 @@ def main(argv=None) -> int:
     model32.load_state_dict(model.state_dict(), strict=True)
     for m, dname in ((model32, "f32"), (model, "bf16")):
         got = one_decode(m)
-        with plain_versions():
+        with plain_versions(kernels):
             want = one_decode(m)
         torch.cuda.synchronize()
         rel = ((got.float() - want.float()).norm()
@@ -712,6 +779,20 @@ def main(argv=None) -> int:
 
     print(f"  clocks after: {clock_line()}")
 
+    # 8 ---------------------------------------------------------------
+    phase("8. the design request at full width: SequenceDenoiser, device "
+          "NERF, DesignEngine")
+    t0 = time.perf_counter()
+    design_counts, design_seconds = design_phase(
+        torch, kernels, model, enc, dec, diffusion, batch, gen, card,
+        None if args.profile is None else Path(args.profile))
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+    # the launches of the main paths' runs: the DDPM-1000 structure run
+    # and the 32-record int8 design batch
+    for entry in record:
+        entry["launches"] = (main_counts[entry["name"]]
+                             + design_counts[entry["name"]])
+
     if args.profile:
         phase("profile: DDIM-25 int8_matmul, torch.profiler")
         profile_sampler(torch, model, diffusion, batch,
@@ -719,6 +800,7 @@ def main(argv=None) -> int:
                         StructureDenoiser, enc, dec, Path(args.profile))
 
     print(f"\nsampler seconds: {json.dumps(seconds)}")
+    print(f"design seconds per batch: {json.dumps(design_seconds)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
     print(card)
@@ -726,6 +808,303 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+class StageMeter:
+    """Wraps a DesignEngine's two samplers to read, for each call, the
+    launches of both kernels and the seconds to the end of its device
+    work (synchronised at the stage's end, where the engine reads its
+    result anyway)."""
+
+    def __init__(self, torch, kernels, engine):
+        self.torch, self.kernels, self.calls = torch, kernels, []
+        for stage, attr in (("structure", "_struct_run"),
+                            ("sequence", "_seq_run")):
+            setattr(engine, attr, self._wrap(stage, getattr(engine, attr)))
+
+    def _wrap(self, stage, run):
+        def counted(*args, **kwargs):
+            before = {k.__name__: k.launches for k in self.kernels.KERNELS}
+            t0 = time.perf_counter()
+            out = run(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.calls.append((stage, time.perf_counter() - t0, {
+                k.__name__: k.launches - before[k.__name__]
+                for k in self.kernels.KERNELS}))
+            return out
+        return counted
+
+
+def pocket_requests(n: int, seed: int) -> list[tuple[str, np.ndarray, int]]:
+    """Pocket requests: 16..64 random residues with angles like real
+    backbones' (dihedrals uniform, bond angles near their means), and a
+    peptide length of 5..16."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        n_pocket = int(rng.integers(16, L_REC + 1))
+        seq = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n_pocket))
+        angles = np.concatenate(
+            [rng.uniform(-np.pi, np.pi, (n_pocket, 4)),
+             rng.normal([1.94, 2.03, 2.13, 2.1], 0.05, (n_pocket, 4))],
+            axis=1).astype(np.float32)
+        out.append((seq, angles, int(rng.integers(5, L_LIG + 1))))
+    return out
+
+
+def bond_errors(coords: np.ndarray) -> np.ndarray:
+    """|length - ideal| of every bond NERF placed in (4n, 3) N/CA/C/O
+    coordinates: N-CA and CA-C from residue 1 on (residue 0's N, CA and C
+    are 1CRN's), C=O and the C -> N peptide bonds everywhere."""
+    res = coords.reshape(-1, 4, 3).astype(np.float64)
+
+    def dist(a, b):
+        return np.linalg.norm(a - b, axis=-1)
+
+    return np.abs(np.concatenate([
+        dist(res[1:, 0], res[1:, 1]) - 1.46, dist(res[1:, 1], res[1:, 2]) - 1.54,
+        dist(res[:, 2], res[:, 3]) - 1.22, dist(res[1:, 0], res[:-1, 2]) - 1.34]))
+
+
+def check_designs(results, requests, label):
+    for res, (_, _, n) in zip(results, requests):
+        check(len(res.sequence) == n and set(res.sequence)
+              <= set("ACDEFGHIKLMNPQRSTVWY"), f"{label}: sequence "
+              f"{res.sequence!r} for a peptide of {n}")
+        check(res.angles.shape == (n, 8) and np.isfinite(res.angles).all()
+              and np.abs(res.angles).max() <= math.pi, f"{label}: angles")
+        check(res.pdb is not None, f"{label}: no PDB")
+        atoms = np.array([[float(line[30:38]), float(line[38:46]),
+                           float(line[46:54])]
+                          for line in res.pdb.splitlines()
+                          if line.startswith("ATOM")])
+        check(atoms.shape == (4 * n, 3) and np.isfinite(atoms).all(),
+              f"{label}: PDB atoms {atoms.shape} for {n} residues")
+        worst = bond_errors(atoms).max() if n > 1 else 0.0
+        check(worst <= PDB_BOND_ATOL, f"{label}: PDB bond length off its "
+              f"ideal by {worst:.2e} A")
+
+
+def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
+                 card, profile_dir):
+    """Phase 8. Returns the launches of the 32-record int8_matmul design
+    batch and the seconds of every design batch."""
+    from e3diff_tpu_torch.cli.run_pipeline import main as pipeline_main
+    from e3diff_tpu_torch.diffusion import D3PMDiffusion
+    from e3diff_tpu_torch.geometry.nerf import (
+        nerf_build_backbone_batch,
+        nerf_build_backbone_np,
+    )
+    from e3diff_tpu_torch.models import (
+        SequenceDenoiser,
+        StructureDenoiser,
+        sequence_model_configs,
+    )
+    from e3diff_tpu_torch.models.structure import state_dict_numel
+    from e3diff_tpu_torch.ops.transitions import UniformTransition
+    from e3diff_tpu_torch.serving import DesignEngine, pocket_record
+    from e3diff_tpu_torch.utils.params_io import cast_inference_params
+    from e3diff_tpu_torch.utils.presets import structure_sample_config
+
+    # 8.1 the model and its count
+    qenc, qdec = sequence_model_configs(max_seq_len=MAX_POS,
+                                        dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    qmodel = SequenceDenoiser(qenc, qdec, device="cuda", seed=1)
+    torch.cuda.synchronize()
+    n_params = state_dict_numel(qmodel)
+    want_params = expected_sequence_param_count(qenc, qdec)
+    print(f"  SequenceDenoiser built in {time.perf_counter() - t0:.2f} s: "
+          f"{n_params:,} values (expected {want_params:,}, JAX "
+          f"{SEQUENCE_PARAMS:,})")
+    check(n_params == want_params == SEQUENCE_PARAMS,
+          "sequence parameter count differs")
+
+    # 8.2 one forward through the kernels against the plain versions, at
+    # the main path's batch with the last 3 rows dead slots (all masks 0)
+    fwd = dict(batch)
+    fwd["ligand_attn_mask"] = batch["ligand_attn_mask"].clone()
+    fwd["receptor_attn_mask"] = batch["receptor_attn_mask"].clone()
+    fwd["ligand_attn_mask"][-3:] = 0
+    fwd["receptor_attn_mask"][-3:] = 0
+    x_t = torch.nn.functional.one_hot(torch.randint(
+        0, 20, (B, L_LIG), generator=gen, device="cuda"), 20).float()
+    ligand_angles = (torch.rand(B, L_LIG, 8, generator=gen, device="cuda")
+                     * 2 - 1) * math.pi
+    s_t = torch.randint(0, SEQ_T, (B, 1), generator=gen,
+                        device="cuda").float()
+    qenc32, qdec32 = sequence_model_configs(max_seq_len=MAX_POS)
+    qmodel32 = SequenceDenoiser(qenc32, qdec32, device="cuda", seed=None)
+    qmodel32.load_state_dict(qmodel.state_dict(), strict=True)
+    for m, dname in ((qmodel32, "f32"), (qmodel, "bf16")):
+        def forward():
+            return m(s_t, x_t, ligand_angles, fwd["ligand_attn_mask"],
+                     fwd["receptor_seq"], fwd["receptor_angles"],
+                     fwd["receptor_attn_mask"])
+        kernels.reset_launch_counts()
+        got = forward()
+        counts = {k.__name__: k.launches for k in kernels.KERNELS}
+        with plain_versions(kernels):
+            want = forward()
+        torch.cuda.synchronize()
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        err = max_err(got, want)
+        print(f"  sequence forward {dname}: max_abs_err {err:.3e}, relative "
+              f"L2 {rel:.3e}, |logits| max "
+              f"{want.float().abs().max().item():.2f}, launches {counts}")
+        check(got.isfinite().all().item(), f"forward {dname}: not finite")
+        check(counts == PER_SEQ_FORWARD, f"forward {dname}: launches "
+              f"{counts} != {PER_SEQ_FORWARD}")
+        if dname == "f32":
+            check(err <= DECODE_F32_ATOL, f"forward f32 differs by {err}")
+        else:
+            check(rel <= DECODE_BF16_REL_L2, f"forward bf16 differs by {rel}")
+    del qmodel32
+
+    # 8.3 the batched NERF on the card against the float64 oracle
+    rng = np.random.default_rng(3)
+    angles = np.concatenate(
+        [rng.uniform(-np.pi, np.pi, (B, L_LIG, 4)),
+         rng.normal([1.94, 2.03, 2.13, 2.1], 0.05, (B, L_LIG, 4))],
+        axis=-1).astype(np.float32)
+    coords = nerf_build_backbone_batch(torch.from_numpy(angles).cuda())
+    coords = coords.cpu().numpy()
+    err = max(np.abs(coords[i] - nerf_build_backbone_np(
+        phi=a[:, 0], psi=a[:, 1], omega=a[:, 2], dihedral_o=a[:, 3],
+        bond_angle_ca_c=a[:, 4], bond_angle_c_n=a[:, 5],
+        bond_angle_n_ca=a[:, 6], bond_angle_c_o=a[:, 7],
+        center=False)).max() for i, a in enumerate(angles))
+    bonds = max(bond_errors(c).max() for c in coords)
+    print(f"  NERF {B}x{L_LIG} on the card: max_abs_err {err:.3e} A against "
+          f"the float64 oracle (atol {NERF_ATOL:g}), bond lengths within "
+          f"{bonds:.2e} A of ideal (atol {BOND_ATOL:g})")
+    check(err <= NERF_ATOL, "NERF disagrees with the oracle")
+    check(bonds <= BOND_ATOL, "NERF bond lengths off their ideal values")
+
+    # 8.4-8.5 DesignEngine, both storage modes, two batches each
+    cfg = structure_sample_config(ligand_max_len=L_LIG)
+    requests = pocket_requests(DESIGN_BATCH, seed=4)
+    want_stage = {
+        "structure": {k: PER_ENCODE[k] + DDIM_STEPS * PER_STEP[k]
+                      for k in PER_STEP},
+        "sequence": {k: SEQ_T * PER_SEQ_FORWARD[k] for k in PER_STEP}}
+    seconds, main_design = {}, None
+    for storage in ("int8_matmul", "f32"):
+        smodel = StructureDenoiser(enc, dec, device="cuda", seed=None)
+        smodel.load_state_dict(model.state_dict(), strict=True)
+        qm = SequenceDenoiser(qenc, qdec, device="cuda", seed=None)
+        qm.load_state_dict(qmodel.state_dict(), strict=True)
+        for m in (smodel, qm):
+            cast_inference_params(m, storage)
+        eng = DesignEngine(
+            cfg, smodel, diffusion, qm,
+            D3PMDiffusion.create(UniformTransition(20), SEQ_T,
+                                 device="cuda"),
+            device="cuda", batch_size=DESIGN_BATCH, batch_buckets=[8],
+            sampler="ddim", ddim_steps=DDIM_STEPS)
+        eng.warmup(generator=torch.Generator(device="cuda").manual_seed(5))
+        meter = StageMeter(torch, kernels, eng)
+        for label, reqs in ((f"{DESIGN_BATCH} records", requests),
+                            (f"{SMALL_BATCH} records in batch bucket 8",
+                             requests[:SMALL_BATCH])):
+            name = f"{label} {storage}"
+            records = [pocket_record(*r) for r in reqs]
+            meter.calls.clear()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = eng.design_records(
+                records, generator=torch.Generator(
+                    device="cuda").manual_seed(6))
+            secs = time.perf_counter() - t0
+            counts = {k.__name__: k.launches for k in kernels.KERNELS}
+            stages = {stage: c for stage, _, c in meter.calls}
+            stage_secs = {stage: round(t, 4) for stage, t, _ in meter.calls}
+            seconds[name] = secs
+            print(f"  {name}: {secs:.3f} s per design batch, "
+                  f"{len(reqs) / secs:.2f} designs/s; stage seconds "
+                  f"{stage_secs} (NERF, PDB text and host work: "
+                  f"{secs - sum(stage_secs.values()):.3f} s); launches "
+                  f"{stages}", flush=True)
+            check(len(meter.calls) == 2 and stages == want_stage,
+                  f"{name}: stage launches {meter.calls} != {want_stage}")
+            check(counts == {k: sum(c[k] for c in stages.values())
+                             for k in counts},
+                  f"{name}: launches outside the two samplers: {counts}")
+            check_designs(results, reqs, name)
+            if (storage, label) == ("int8_matmul", f"{DESIGN_BATCH} records"):
+                main_design = counts
+        if profile_dir is not None and storage == "int8_matmul":
+            profile_design(torch, eng, [pocket_record(*r) for r in requests],
+                           profile_dir)
+        del eng, smodel, qm
+
+    # 8.6 the pipeline CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = pipeline_main([
+            "--synthetic", "--sampler", "ddim", "--ddim_steps",
+            str(DDIM_STEPS), "--params_dtype", "int8_matmul",
+            "--batch_size", str(B), "--max_seq_len", str(MAX_POS),
+            "--ligand_max_len", str(L_LIG), "--outdir", tmp])
+        secs = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in kernels.KERNELS}
+        want = {k: want_stage["structure"][k] + want_stage["sequence"][k]
+                for k in PER_STEP}
+        print(f"  cli run_pipeline ddim-{DDIM_STEPS} int8_matmul: {secs:.3f} "
+              f"s including both models' build, "
+              f"{len(results['predict_sequence'])} designs, launches {counts}")
+        check(counts == want, f"pipeline cli: launches {counts} != {want}")
+        check(len(results["predict_sequence"]) > 0 and all(
+            p and Path(p).is_file() for p in results["pdb_paths"])
+            and (Path(tmp) / "results.pkl").is_file(),
+            "pipeline cli wrote no designs")
+        check([len(s) for s in results["predict_sequence"]]
+              == [len(a) for a in results["generated_angles"]],
+              "pipeline cli: sequence lengths")
+    print(f"  {card}")
+    return main_design, seconds
+
+
+def profile_design(torch, eng, records, out: Path):
+    """Device busy share of one 32-record design batch, and its device
+    time by stage: the structure sampler's kernels, the sequence
+    sampler's, and the rest; the chrome trace goes to ``out``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for attr, stage in (("_struct_run", "structure stage"),
+                        ("_seq_run", "sequence stage")):
+        def ranged(*a, _run=getattr(eng, attr), _stage=stage, **kw):
+            with record_function(_stage):
+                return _run(*a, **kw)
+        setattr(eng, attr, ranged)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.design_records(records, generator=gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    stages = ("structure stage", "sequence stage")
+    cuda = torch.autograd.DeviceType.CUDA
+    # the two ranges also appear on the device's timeline as spans (their
+    # length there, not kernel time): kept out of the busy sum
+    busy = sum(getattr(e, "device_time_total", 0)
+               for e in prof.key_averages()
+               if e.device_type == cuda and e.key not in stages)
+    print(f"  profile, one design batch of {len(records)}: wall "
+          f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle "
+          f"{100 * (1 - busy / wall_us):.1f}%")
+    for e in prof.key_averages():
+        if e.key in stages and e.device_type != cuda:
+            print(f"  {e.key}: host {e.cpu_time_total / 1e3:.2f} ms, its "
+                  f"kernels' device time "
+                  f"{getattr(e, 'device_time_total', 0) / 1e3:.2f} ms")
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "design_batch_trace.json"))
 
 
 def profile_sampler(torch, model, diffusion, batch, make_structure_sampler,

@@ -30,3 +30,19 @@ def guided_combine(pred_2b, guidance_scale):
         w = w.reshape((-1,) + (1,) * (cond.ndim - 1))
     # float() first: a 0-d f32 tensor would not promote a bf16 operand
     return uncond.float() + w * (cond - uncond).float()
+
+
+def concat_cond_uncond(batch: dict, drop_ligand_angles: bool = False) -> dict:
+    """The 2B guided batch: conditional half, then the null half. Fields
+    that are not conditioning are tiled; the pocket fields (and, for the
+    sequence model, the ligand angles, zeroed) take the null
+    conditioning in the second half. The ligand mask is never dropped:
+    the peptide's length is part of the task."""
+    nseq, nang, nmask = null_receptor(
+        batch["receptor_seq"], batch["receptor_angles"],
+        batch["receptor_attn_mask"])
+    nulls = {"receptor_seq": nseq, "receptor_angles": nang,
+             "receptor_attn_mask": nmask}
+    if drop_ligand_angles:
+        nulls["ligand_angles"] = torch.zeros_like(batch["ligand_angles"])
+    return {k: torch.cat([v, nulls.get(k, v)]) for k, v in batch.items()}

@@ -39,6 +39,13 @@ def extend_attention_mask(mask: torch.Tensor, dtype=torch.float32):
     return (1.0 - mask.to(dtype)) * -10000.0
 
 
+def kernel_mask(mask: torch.Tensor, cfg: TransformerConfig):
+    """The additive mask as the attention kernel takes it: built in the
+    compute dtype as the JAX package builds it (-9984 in bf16), read as
+    f32."""
+    return extend_attention_mask(mask, cfg.dtype).float()
+
+
 class Linear(nn.Module):
     """y = x W^T + b in the compute dtype. ``weight`` is (out, in) and is
     stored f32, bf16, or int8 beside a per-output-channel ``weight_scale``
@@ -272,17 +279,14 @@ class MLPHead(nn.Module):
         return self.dense2(self.layer_norm(F.gelu(self.dense1(x))))
 
 
-@torch.no_grad()
-def init_torch_default_(model: nn.Module, generator: torch.Generator):
-    """Random weights as the reference's bare torch modules draw them:
-    Linear U(+-1/sqrt(fan_in)) for weight and bias, distance tables N(0, 1),
-    LayerNorm ones/zeros, Fourier W ~ N(0, (2 pi)^2), and the SELayer's
-    first adaLN Linear zeroed."""
+def _init_(model: nn.Module, generator: torch.Generator, init_linear,
+           zero_adaln):
+    """Distance tables N(0, 1), LayerNorm ones/zeros, Fourier W ~
+    N(0, (2 pi)^2), every Linear through ``init_linear``; then the first
+    adaLN Linear of each SELayer in ``zero_adaln`` zeroed."""
     for m in model.modules():
         if isinstance(m, Linear):
-            bound = 1.0 / math.sqrt(m.in_features)
-            m.weight.uniform_(-bound, bound, generator=generator)
-            m.bias.uniform_(-bound, bound, generator=generator)
+            init_linear(m)
         elif isinstance(m, DistanceEmbedding):
             m.weight.normal_(0.0, 1.0, generator=generator)
         elif isinstance(m, LayerNorm) and m.weight is not None:
@@ -290,8 +294,37 @@ def init_torch_default_(model: nn.Module, generator: torch.Generator):
             m.bias.zero_()
         elif isinstance(m, GaussianFourierProjection):
             m.W.normal_(0.0, 2 * math.pi, generator=generator)
-    for m in model.modules():
-        if isinstance(m, SELayer):
-            m.adaLN_modulation[0].weight.zero_()
-            m.adaLN_modulation[0].bias.zero_()
+    for m in zero_adaln:
+        m.adaLN_modulation[0].weight.zero_()
+        m.adaLN_modulation[0].bias.zero_()
     return model
+
+
+@torch.no_grad()
+def init_torch_default_(model: nn.Module, generator: torch.Generator):
+    """Random weights as the reference's bare torch modules draw them:
+    Linear U(+-1/sqrt(fan_in)) for weight and bias, and every SELayer's
+    first adaLN Linear zeroed (the structure model)."""
+    def linear(m):
+        bound = 1.0 / math.sqrt(m.in_features)
+        m.weight.uniform_(-bound, bound, generator=generator)
+        m.bias.uniform_(-bound, bound, generator=generator)
+
+    return _init_(model, generator, linear,
+                  [m for m in model.modules() if isinstance(m, SELayer)])
+
+
+@torch.no_grad()
+def init_xavier_all_(model: nn.Module, generator: torch.Generator,
+                     zero_adaln=()):
+    """The sequence model's initialize_weights
+    (sequence_model/model.py:183-198): xavier-uniform Linear weights,
+    U(+-sqrt(6 / (fan_in + fan_out))), and zero biases everywhere; only
+    the SELayers in ``zero_adaln`` get their first adaLN Linear re-zeroed
+    (``decoder_normalize``; the shared fuse keeps its xavier adaLN)."""
+    def linear(m):
+        bound = math.sqrt(6.0 / (m.in_features + m.out_features))
+        m.weight.uniform_(-bound, bound, generator=generator)
+        m.bias.zero_()
+
+    return _init_(model, generator, linear, zero_adaln)

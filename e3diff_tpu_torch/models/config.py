@@ -25,6 +25,11 @@ class TransformerConfig:
     position_embedding_type: str = "relative_key"
     add_cross_attention: bool = False
     mlp_ratio: float = 4.0  # SELayer MLP width multiplier (not intermediate_size)
+    # random weights when a model is built with a seed: "torch_default"
+    # (bare torch modules, the structure model) or "xavier_all" (xavier-
+    # uniform weights and zero biases, the sequence model's
+    # initialize_weights, sequence_model/model.py:183-198)
+    init_style: str = "torch_default"
     dtype: torch.dtype = torch.float32  # activation / compute dtype
 
     @property
@@ -46,6 +51,23 @@ def structure_model_configs(
         hidden_size=768, num_heads=12, num_layers=num_layers,
         intermediate_size=1024, max_position_embeddings=max_seq_len,
         position_embedding_type="relative_key", dtype=dtype,
+    )
+    return (TransformerConfig(**base, add_cross_attention=False),
+            TransformerConfig(**base, add_cross_attention=True))
+
+
+def sequence_model_configs(
+    max_seq_len: int = 128,
+    num_layers: int = 6,
+    dtype: torch.dtype = torch.float32,
+) -> tuple[TransformerConfig, TransformerConfig]:
+    """Encoder/decoder configs of the sequence (D3PM) denoiser
+    (sequence_model/train_model.py:17-39, :118-142)."""
+    base = dict(
+        hidden_size=768, num_heads=12, num_layers=num_layers,
+        intermediate_size=1024, max_position_embeddings=max_seq_len,
+        position_embedding_type="relative_key", init_style="xavier_all",
+        dtype=dtype,
     )
     return (TransformerConfig(**base, add_cross_attention=False),
             TransformerConfig(**base, add_cross_attention=True))

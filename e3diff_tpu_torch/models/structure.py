@@ -24,8 +24,8 @@ from e3diff_tpu_torch.models.blocks import (
     MLPHead,
     SELayer,
     TransformerStack,
-    extend_attention_mask,
     init_torch_default_,
+    kernel_mask,
 )
 from e3diff_tpu_torch.models.config import TransformerConfig
 from e3diff_tpu_torch.utils.device import resolve_device
@@ -59,15 +59,10 @@ class StructureDenoiser(nn.Module):
             init_torch_default_(self, gen)
         self.eval()
 
-    def _mask(self, mask, cfg: TransformerConfig):
-        # the JAX package builds the additive mask in the compute dtype;
-        # the kernel reads those values as f32
-        return extend_attention_mask(mask, cfg.dtype).float()
-
     @torch.no_grad()
     def encode_receptor(self, receptor_seq, receptor_angles, receptor_mask):
         """Timestep-independent pocket encoding -> (B, L, H) memory."""
-        rec_ext = self._mask(receptor_mask, self.encoder_config)
+        rec_ext = kernel_mask(receptor_mask, self.encoder_config)
         rec_angles = self.receptor_angle_emb(receptor_angles)
         rec_seq = self.receptor_seq_emb(receptor_seq)
         rec = self.receptor_emb(rec_angles, rec_seq, rec_ext)
@@ -85,8 +80,8 @@ class StructureDenoiser(nn.Module):
         ``cross_kv`` (from ``precompute_cross_kv``) replaces the K/V
         projections of ``encoder_out``."""
         dec = self.decoder_config
-        lig_ext = self._mask(ligand_mask, dec)
-        rec_ext = self._mask(receptor_mask, dec)
+        lig_ext = kernel_mask(ligand_mask, dec)
+        rec_ext = kernel_mask(receptor_mask, dec)
         lig = self.ligand_angle_emb(noised_ligand_angles)
         t_emb = self.timestep_projector(timestep)[:, None, :]
         lig = self.timestep_emb(lig, t_emb, lig_ext)

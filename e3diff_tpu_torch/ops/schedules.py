@@ -1,9 +1,10 @@
-"""Diffusion noise schedules of the structure DDPM (counterpart of
-e3diff_tpu/ops/schedules.py). Computed host-side in NumPy float64 and cast
-to float32, exactly as the JAX package does; callers move the terms to
-their device."""
+"""Diffusion noise schedules of the structure DDPM and the sequence D3PM
+(counterpart of e3diff_tpu/ops/schedules.py). Computed host-side in NumPy
+exactly as the JAX package does; callers move the terms to their device."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -38,3 +39,39 @@ def compute_alphas(betas: np.ndarray) -> dict[str, np.ndarray]:
         "sqrt_posterior_variance": np.sqrt(posterior_variance),
     }
     return {k: v.astype(np.float32) for k, v in out.items()}
+
+
+def cosine_beta_schedule_discrete(timesteps: int, s: float = 8e-3) -> np.ndarray:
+    """Discrete cosine schedule of **timesteps + 1** betas
+    (sequence_model/utils.py:99-108): T + 2 points spanning [0, T + 2], so
+    the spacing is (T+2)/(T+1); the last beta is 1.0. float32."""
+    steps = timesteps + 2
+    x = np.linspace(0, steps, steps, dtype=np.float64)
+    alphas_cumprod = np.cos(0.5 * np.pi * ((x / steps) + s) / (1 + s)) ** 2
+    alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
+    alphas = alphas_cumprod[1:] / alphas_cumprod[:-1]
+    betas = 1 - alphas
+    return betas.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscreteNoiseSchedule:
+    """The sequence D3PM's lookup-table schedule
+    (PredefinedNoiseScheduleDiscrete, sequence_model/utils.py:206-233):
+    betas clamped to <= 0.9999 before the cumulative product, alpha_bar as
+    exp(cumsum(log(alpha))) in float32, the reference's bit pattern. Each
+    array has T + 1 entries, indexed by the integer step 0..T."""
+
+    timesteps: int
+    betas: np.ndarray
+    alphas: np.ndarray
+    alphas_bar: np.ndarray
+
+    @classmethod
+    def cosine(cls, timesteps: int) -> "DiscreteNoiseSchedule":
+        betas = cosine_beta_schedule_discrete(timesteps)
+        alphas = (1.0 - np.clip(betas, 0.0, 0.9999)).astype(np.float32)
+        log_alpha_bar = np.cumsum(np.log(alphas.astype(np.float32)))
+        alphas_bar = np.exp(log_alpha_bar).astype(np.float32)
+        return cls(timesteps=timesteps, betas=betas, alphas=alphas,
+                   alphas_bar=alphas_bar)

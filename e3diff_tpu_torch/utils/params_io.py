@@ -13,10 +13,12 @@ them:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from e3diff_tpu_torch.models.blocks import DistanceEmbedding, Linear
+from e3diff_tpu_torch.ops.schedules import DiscreteNoiseSchedule
 from e3diff_tpu_torch.utils.quant import quantize_int8
 
 PARAMS_DTYPES = ("f32", "bf16_matmul", "int8_matmul")
@@ -48,5 +50,34 @@ def load_structure_checkpoint(path: str, model: nn.Module) -> nn.Module:
     """Load a reference-layout ``.pt`` state_dict (the reference's own
     checkpoints, or the JAX package's torch export) into ``model``."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+# keys of a reference PeptideDiff state_dict that the port does not carry:
+# the never-called receptor_feature_emb SELayer (quirk Q7) and the D3PM
+# schedule's betas buffer, which the port recomputes
+DEAD_SEQUENCE_PREFIX = "receptor_feature_emb."
+SEQUENCE_BETAS_KEY = "discrete_noise_schedule.betas"
+
+
+def load_sequence_checkpoint(path: str, model: nn.Module,
+                             timesteps: int = 50) -> nn.Module:
+    """Load a reference-layout PeptideDiff ``.pt`` state_dict (the
+    reference's checkpoints, or the JAX package's export) into a
+    SequenceDenoiser. The dead ``receptor_feature_emb.*`` keys and the
+    schedule's betas are dropped, the betas only after they are checked
+    against the port's own ``timesteps``-step schedule; the rest loads
+    with ``strict=True``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if SEQUENCE_BETAS_KEY in sd:
+        betas = sd.pop(SEQUENCE_BETAS_KEY).numpy()
+        want = DiscreteNoiseSchedule.cosine(timesteps).betas
+        if betas.shape != want.shape or not np.array_equal(betas, want):
+            raise ValueError(
+                f"{path}: {SEQUENCE_BETAS_KEY} is not the {timesteps}-step "
+                "cosine schedule")
+    sd = {k: v for k, v in sd.items()
+          if not k.startswith(DEAD_SEQUENCE_PREFIX)}
     model.load_state_dict(sd, strict=True)
     return model

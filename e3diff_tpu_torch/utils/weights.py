@@ -1,8 +1,12 @@
 """JAX parameter trees -> the port's state_dict (the port's own copy of
-e3diff_tpu/utils/torch_port.py::export_structure_state_dict).
+e3diff_tpu/utils/torch_port.py::export_structure_state_dict and the live
+part of ::export_sequence_state_dict).
 
-Input: the StructureDenoiser flax parameter tree with numpy (or
-array-like) leaves, in the per-layer layout (``layer_{i}``). Output: a
+Input: a StructureDenoiser or SequenceDenoiser flax parameter tree with
+numpy (or array-like) leaves, its transformer stacks in the per-layer
+layout (``layer_{i}``) or the scan layout (``layers/layer`` with a leading
+layer axis, which is unstacked here as
+e3diff_tpu/models/restack.py::params_from_scan does). Output: a
 state_dict in the reference HF-BERT layout, which the port's modules carry,
 for ``load_state_dict(strict=True)``. flax Dense kernels are (in, out) and
 become torch (out, in) weights; LayerNorm ``scale`` becomes ``weight``;
@@ -16,7 +20,8 @@ import torch
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+    # a copy: a JAX array's numpy view is read-only
+    return torch.from_numpy(np.array(x, np.float32, order="C"))
 
 
 def _lin(tree, p, out):
@@ -52,14 +57,26 @@ def _selayer(tree, p, out):
     _lin(tree["mlp_dense2"], f"{p}.mlp.3", out)
 
 
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layers(tree) -> dict:
+    """A stack's layer subtrees by index, from either layout."""
+    if set(tree) == {"layers"}:
+        stacked = tree["layers"]["layer"]
+        leaf = stacked
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        return {i: _map(lambda x, i=i: np.asarray(x)[i], stacked)
+                for i in range(np.shape(leaf)[0])}
+    return {int(name.rsplit("_", 1)[1]): layer for name, layer in tree.items()}
+
+
 def _transformer_stack(tree, p, out):
-    if "layers" in tree:
-        raise NotImplementedError(
-            "scan_layers parameter layout: unstack it to layer_{i} first "
-            "(e3diff_tpu/models/restack.py::params_from_scan)")
-    for name in sorted(tree, key=lambda s: int(s.rsplit("_", 1)[1])):
-        i = int(name.rsplit("_", 1)[1])
-        layer = tree[name]
+    for i, layer in sorted(_layers(tree).items()):
         base = f"{p}.layer.{i}"
         _attention_block(layer["attention"], f"{base}.attention", out)
         if "crossattention" in layer:
@@ -89,4 +106,21 @@ def structure_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     _selayer(params["timestep_emb"], "timestep_emb", out)
     _transformer_stack(params["decoder"], "decoder", out)
     _mlp_head(params["angles_predictor"], "angles_predictor", out)
+    return out
+
+
+def sequence_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """SequenceDenoiser flax params -> the port's (reference PeptideDiff
+    layout) state_dict of CPU float32 tensors: the live weights only, not
+    the dead ``receptor_feature_emb`` (Q7) nor the schedule's betas
+    buffer that a reference checkpoint also carries."""
+    out: dict[str, torch.Tensor] = {}
+    out["timestep_projector.W"] = _t(params["timestep_projector"]["W"])
+    for name in ("ligand_seq_embedding", "ligand_angle_embedding",
+                 "receptor_seq_embedding", "receptor_angle_embedding"):
+        _feature_embedding(params[name], name, out)
+    _selayer(params["ligand_feature_emb"], "ligand_feature_emb", out)
+    _transformer_stack(params["decoder"], "decoder", out)
+    _selayer(params["decoder_normalize"], "decoder_normalize", out)
+    _mlp_head(params["amino_acid_predictor"], "amino_acid_predictor", out)
     return out

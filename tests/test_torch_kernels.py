@@ -22,6 +22,19 @@ F = H * D
 MAX_POS = 32
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain versions run on one CPU thread in this file. Several test
+    processes share the host's cores, and torch's threaded CPU kernels
+    may then split a reduction differently from one call to the next; on
+    one thread every call sums in one order, so the comparisons below
+    hold the plain versions' arithmetic, not the thread pool's."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed=0, b=B, lq=LQ, lk=LK, h=H, max_pos=MAX_POS, ragged=False):
     """Seeded q, k, v, mask and table. The mask drops keys 20.. or, when
     ragged, keeps a random prefix of 1..Lk keys and a single key in batch
@@ -74,6 +87,28 @@ def test_attention_plain_matches_pallas(case, with_table):
         num_heads=h, max_pos=max_pos)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-4)
     assert kernels.fused_attention.launches == before  # CPU: plain version
+
+
+@pytest.mark.parametrize("with_table", [False, True])
+def test_attention_all_masked_rows_match_pallas(with_table):
+    """A dead batch slot (the engine pads a partial batch with all-zero
+    attention masks): every key of a row at -10000, in f32 and at the
+    compute-dtype value -9984 that a bf16 mask rounds to. The softmax then
+    sees all keys shifted alike and stays finite, as in the Pallas body."""
+    q, k, v, mask, table = _inputs(seed=2)
+    mask[0] = -10000.0
+    mask[1] = -9984.0
+    mask[2, 1:] = -10000.0
+    want = np.asarray(pk.fused_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+        jnp.asarray(_pe(table, LQ, LK)) if with_table else None,
+        num_heads=H, block_b=4, interpret=True))
+    got = kernels.fused_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(mask), torch.from_numpy(table) if with_table else None,
+        num_heads=H, max_pos=MAX_POS)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-4)
 
 
 def test_attention_masked_columns_ignored():

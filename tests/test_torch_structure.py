@@ -39,6 +39,7 @@ from e3diff_tpu.utils.params_io import cast_inference_params as j_cast
 from e3diff_tpu.utils.quant import dequantize_params, quantize_params_int8
 
 from e3diff_tpu_torch.data import LigandBindingSiteData, synthetic_complexes
+from e3diff_tpu_torch.diffusion.d3pm import D3PMDiffusion
 from e3diff_tpu_torch.diffusion.gaussian import (
     GaussianAngleDiffusion,
     ddim_timesteps,
@@ -46,18 +47,24 @@ from e3diff_tpu_torch.diffusion.gaussian import (
 from e3diff_tpu_torch.models.blocks import GaussianFourierProjection
 from e3diff_tpu_torch.models.config import (
     TransformerConfig,
+    sequence_model_configs,
     structure_model_configs,
 )
+from e3diff_tpu_torch.models.sequence import SequenceDenoiser
 from e3diff_tpu_torch.models.structure import (
     StructureDenoiser,
     state_dict_numel,
 )
 from e3diff_tpu_torch.ops import angles, schedules
+from e3diff_tpu_torch.ops.transitions import UniformTransition
+from e3diff_tpu_torch.sampling.pipeline import run_pipeline
+from e3diff_tpu_torch.sampling.sequence import sample_sequence_batches
 from e3diff_tpu_torch.sampling.structure import (
     make_denoise_fn,
     make_structure_sampler,
     sample_structure_batches,
 )
+from e3diff_tpu_torch.serving.engine import DesignEngine
 from e3diff_tpu_torch.utils.params_io import cast_inference_params
 from e3diff_tpu_torch.utils.quant import dequantize, quantize_int8
 from e3diff_tpu_torch.utils.weights import structure_state_dict_from_jax
@@ -374,27 +381,44 @@ def test_port_never_imports_jax():
         "for m in pkgutil.walk_packages(e3diff_tpu_torch.__path__, 'e3diff_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import e3diff_tpu_torch.cli.sample_structure\n"
+        "import e3diff_tpu_torch.cli.sample_sequence\n"
+        "import e3diff_tpu_torch.cli.run_pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'e3diff_tpu')]\n"
         "assert not bad, bad\n"
-        "assert 'e3diff_tpu_torch.cli.sample_structure' in sys.modules\n")
+        "for cli in ('sample_structure', 'sample_sequence', 'run_pipeline'):\n"
+        "    assert 'e3diff_tpu_torch.cli.' + cli in sys.modules\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True,
                    timeout=120)
 
 
+def _cli(name, *argv):
+    return lambda: __import__(f"e3diff_tpu_torch.cli.{name}",
+                              fromlist=["main"]).main(["--synthetic", *argv])
+
+
 def _cuda_entry_points():
     enc, dec = structure_model_configs(num_layers=1)
+    qenc, qdec = sequence_model_configs(num_layers=1)
     return {
         "model": lambda: StructureDenoiser(enc, dec),
         "diffusion": lambda: GaussianAngleDiffusion.cosine(10),
         "sampler": lambda: sample_structure_batches(None, None, []),
-        "cli": lambda: __import__(
-            "e3diff_tpu_torch.cli.sample_structure", fromlist=["main"]).main(
-                ["--synthetic", "--timesteps", "2"]),
+        "cli": _cli("sample_structure", "--timesteps", "2"),
+        "sequence_model": lambda: SequenceDenoiser(qenc, qdec),
+        "d3pm": lambda: D3PMDiffusion.create(UniformTransition(20), 10),
+        "sequence_sampler": lambda: sample_sequence_batches(None, None, []),
+        "pipeline": lambda: run_pipeline(None, None, None),
+        "engine": lambda: DesignEngine(None, None, None, None, None),
+        "sequence_cli": _cli("sample_sequence", "--timesteps", "2"),
+        "pipeline_cli": _cli("run_pipeline", "--timesteps", "2"),
     }
 
 
-@pytest.mark.parametrize("entry", ["model", "diffusion", "sampler", "cli"])
+@pytest.mark.parametrize("entry", [
+    "model", "diffusion", "sampler", "cli", "sequence_model", "d3pm",
+    "sequence_sampler", "pipeline", "engine", "sequence_cli",
+    "pipeline_cli"])
 def test_entry_points_default_to_the_card_and_raise_without_one(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the entry points run there")
