@@ -32,16 +32,32 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    pipeline CLI -- checking every sequence, every PDB (4 atoms a residue,
    finite, ideal bond lengths) and the exact launches of both kernels in
    each stage (13 + 29 per encode and 25 + 41 per DDIM step; 15 + 32 per
-   sequence forward, 50 forwards), and printing seconds per design batch.
+   sequence forward, 50 forwards), and printing seconds per design batch;
+9. training at full width: the training forward of the attention kernel
+   (dropout 0.1 and 0, with the row log-sum-exp), its backward and the
+   LayerNorm backward against their plain versions (and in f32 against
+   torch.autograd) at the training shapes (B=64, 128 x 128) and the
+   sampler's, ragged and dead rows, f32 and bf16, then their times beside
+   the plain versions, the backward of SDPA / of F.layer_norm(x + r) and
+   their bounds; for the 146M structure and the 61M sequence trainer at
+   their presets (B=64, length 128, bf16 compute, f32 master weights,
+   AdamW): one step's loss and gradients through the kernels against the
+   plain versions at dropout 0 (f32 and bf16), 20 train steps at dropout
+   0.1 with finite, falling losses and the exact launches of each step
+   (38 + 70 forward and 38 + 70 backward; 15 + 32 and 15 + 32), an eval
+   step (forward kernels only), the median step time, samples/s and peak
+   memory; both train CLIs for one epoch, and DesignEngine serving a
+   design batch from the two final.pt files they wrote.
 
 The last three lines are the kernels' JSON record, the card, and
 ``{"ok": true, "device": {...}}``.
 
 Usage, from the root of a checkout:
     python3 chip_smoke.py              # what the checks above need
-    python3 chip_smoke.py --profile DIR  # also a torch.profiler breakdown
-                                         # of a DDIM run (device busy share),
-                                         # its trace written to DIR
+    python3 chip_smoke.py --profile DIR  # also torch.profiler breakdowns
+                                         # of a DDIM run, a design batch and
+                                         # 3 structure train steps (device
+                                         # busy share), traces written to DIR
 Without a CUDA card, or away from the repository, it exits non-zero and
 prints no result.
 """
@@ -471,14 +487,31 @@ def make_batch(torch, gen):
 
 @contextlib.contextmanager
 def plain_versions(kernels):
-    """The models' kernel calls go to the plain PyTorch versions."""
-    saved = kernels.fused_attention, kernels.fused_layernorm
-    kernels.fused_attention = kernels.attention_plain
-    kernels.fused_layernorm = kernels.layernorm_plain
+    """The models' kernel calls go to the plain PyTorch versions: the
+    inference kernels' and, for training, the differentiable paths', which
+    autograd then differentiates."""
+    names = ("fused_attention", "fused_layernorm", "attention_autograd",
+             "layernorm_autograd")
+    saved = [getattr(kernels, n) for n in names]
+    for n, plain in zip(names, (
+            kernels.attention_plain, kernels.layernorm_plain,
+            kernels.attention_autograd_plain, kernels.layernorm_plain)):
+        setattr(kernels, n, plain)
     try:
         yield
     finally:
-        kernels.fused_attention, kernels.fused_layernorm = saved
+        for n, f in zip(names, saved):
+            setattr(kernels, n, f)
+
+
+def launch_counts(kernels) -> dict[str, int]:
+    return {k.__name__: k.launches for k in kernels.KERNELS}
+
+
+def with_zeros(kernels, want: dict[str, int]) -> dict[str, int]:
+    """``want`` over every kernel: a kernel it does not name was launched
+    0 times (the samplers launch no training kernel)."""
+    return {k.__name__: want.get(k.__name__, 0) for k in kernels.KERNELS}
 
 
 def in_angle_range(torch, x) -> bool:
@@ -494,8 +527,9 @@ def in_angle_range(torch, x) -> bool:
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", metavar="DIR", default=None,
-                      help="also profile a DDIM run with torch.profiler "
-                           "and write its trace to DIR")
+                      help="also profile a DDIM run, a design batch and "
+                           "structure train steps with torch.profiler and "
+                           "write their traces to DIR")
     args = args.parse_args(argv)
 
     import torch
@@ -530,7 +564,6 @@ def main(argv=None) -> int:
     # 1 ---------------------------------------------------------------
     phase("1. card")
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, device count "
@@ -666,9 +699,9 @@ def main(argv=None) -> int:
             final, _ = run(batch, generator=g)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            counts = {k.__name__: k.launches for k in kernels.KERNELS}
-            want = {k: PER_ENCODE[k] + n_steps * PER_STEP[k]
-                    for k in PER_STEP}
+            counts = launch_counts(kernels)
+            want = with_zeros(kernels, {
+                k: PER_ENCODE[k] + n_steps * PER_STEP[k] for k in PER_STEP})
             seconds[name] = secs
             print(f"  {name}: {secs:.3f} s ({secs / n_steps * 1e3:.2f} ms "
                   f"per step), launches {counts}", flush=True)
@@ -691,8 +724,9 @@ def main(argv=None) -> int:
                             "--ligand_max_len", str(L_LIG),
                             "--no_trajectory", "--output", str(out)])
         secs = time.perf_counter() - t0
-        counts = {k.__name__: k.launches for k in kernels.KERNELS}
-        want = {k: PER_ENCODE[k] + DDIM_STEPS * PER_STEP[k] for k in PER_STEP}
+        counts = launch_counts(kernels)
+        want = with_zeros(kernels, {k: PER_ENCODE[k] + DDIM_STEPS * PER_STEP[k]
+                                    for k in PER_STEP})
         print(f"  cli ddim-{DDIM_STEPS} int8_matmul: {secs:.3f} s including "
               f"model build, {len(results)} samples, launches {counts}")
         check(counts == want, f"cli: launches {counts} != {want}")
@@ -787,25 +821,49 @@ def main(argv=None) -> int:
         torch, kernels, model, enc, dec, diffusion, batch, gen, card,
         None if args.profile is None else Path(args.profile))
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
-    # the launches of the main paths' runs: the DDPM-1000 structure run
-    # and the 32-record int8 design batch
+
+    # 9 ---------------------------------------------------------------
+    phase("9. training at full width: the training kernels, both trainers, "
+          "both train CLIs")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    train_errs = training_kernel_checks(torch, kernels, gen)
+    print(f"  clocks before: {clock_line()}")
+    record += time_training_kernels(torch, kernels, gen, train_errs)
+    print(f"  clocks after: {clock_line()}")
+    train_counts = {k.__name__: 0 for k in kernels.KERNELS}
+    train_timing = {}
+    for model_name in ("structure", "sequence"):
+        totals, train_timing[model_name] = trainer_phase(torch, kernels,
+                                                         model_name, gen)
+        for k, n in totals.items():
+            train_counts[k] += n
+    train_cli_phase(torch, kernels)
+    print(f"  {card}")
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    # the launches of the main paths' runs: the DDPM-1000 structure run,
+    # the 32-record int8 design batch and the two trainers' train steps
     for entry in record:
         entry["launches"] = (main_counts[entry["name"]]
-                             + design_counts[entry["name"]])
+                             + design_counts[entry["name"]]
+                             + train_counts[entry["name"]])
 
     if args.profile:
         phase("profile: DDIM-25 int8_matmul, torch.profiler")
         profile_sampler(torch, model, diffusion, batch,
                         make_structure_sampler, cast_inference_params,
                         StructureDenoiser, enc, dec, Path(args.profile))
+        phase("profile: structure train steps, B=64, torch.profiler")
+        profile_train_steps(torch, kernels, Path(args.profile))
 
     print(f"\nsampler seconds: {json.dumps(seconds)}")
     print(f"design seconds per batch: {json.dumps(design_seconds)}")
+    print(f"train steps: {json.dumps(train_timing)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
@@ -942,9 +1000,10 @@ def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
                      fwd["receptor_seq"], fwd["receptor_angles"],
                      fwd["receptor_attn_mask"])
         kernels.reset_launch_counts()
-        got = forward()
-        counts = {k.__name__: k.launches for k in kernels.KERNELS}
-        with plain_versions(kernels):
+        with torch.no_grad():  # as the sampler calls it
+            got = forward()
+        counts = launch_counts(kernels)
+        with plain_versions(kernels), torch.no_grad():
             want = forward()
         torch.cuda.synchronize()
         rel = ((got.float() - want.float()).norm()
@@ -954,8 +1013,8 @@ def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
               f"L2 {rel:.3e}, |logits| max "
               f"{want.float().abs().max().item():.2f}, launches {counts}")
         check(got.isfinite().all().item(), f"forward {dname}: not finite")
-        check(counts == PER_SEQ_FORWARD, f"forward {dname}: launches "
-              f"{counts} != {PER_SEQ_FORWARD}")
+        check(counts == with_zeros(kernels, PER_SEQ_FORWARD),
+              f"forward {dname}: launches {counts} != {PER_SEQ_FORWARD}")
         if dname == "f32":
             check(err <= DECODE_F32_ATOL, f"forward f32 differs by {err}")
         else:
@@ -986,9 +1045,10 @@ def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
     cfg = structure_sample_config(ligand_max_len=L_LIG)
     requests = pocket_requests(DESIGN_BATCH, seed=4)
     want_stage = {
-        "structure": {k: PER_ENCODE[k] + DDIM_STEPS * PER_STEP[k]
-                      for k in PER_STEP},
-        "sequence": {k: SEQ_T * PER_SEQ_FORWARD[k] for k in PER_STEP}}
+        "structure": with_zeros(kernels, {
+            k: PER_ENCODE[k] + DDIM_STEPS * PER_STEP[k] for k in PER_STEP}),
+        "sequence": with_zeros(kernels, {
+            k: SEQ_T * PER_SEQ_FORWARD[k] for k in PER_STEP})}
     seconds, main_design = {}, None
     for storage in ("int8_matmul", "f32"):
         smodel = StructureDenoiser(enc, dec, device="cuda", seed=None)
@@ -1018,7 +1078,7 @@ def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
                 records, generator=torch.Generator(
                     device="cuda").manual_seed(6))
             secs = time.perf_counter() - t0
-            counts = {k.__name__: k.launches for k in kernels.KERNELS}
+            counts = launch_counts(kernels)
             stages = {stage: c for stage, _, c in meter.calls}
             stage_secs = {stage: round(t, 4) for stage, t, _ in meter.calls}
             seconds[name] = secs
@@ -1050,9 +1110,9 @@ def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
             "--batch_size", str(B), "--max_seq_len", str(MAX_POS),
             "--ligand_max_len", str(L_LIG), "--outdir", tmp])
         secs = time.perf_counter() - t0
-        counts = {k.__name__: k.launches for k in kernels.KERNELS}
+        counts = launch_counts(kernels)
         want = {k: want_stage["structure"][k] + want_stage["sequence"][k]
-                for k in PER_STEP}
+                for k in counts}
         print(f"  cli run_pipeline ddim-{DDIM_STEPS} int8_matmul: {secs:.3f} "
               f"s including both models' build, "
               f"{len(results['predict_sequence'])} designs, launches {counts}")
@@ -1151,6 +1211,635 @@ def profile_sampler(torch, model, diffusion, batch, make_structure_sampler,
               f"per call  {key[:70]}")
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "ddim25_int8_trace.json"))
+
+
+
+def profile_train_steps(torch, kernels, out: Path, n_steps: int = 3):
+    """Device busy share of ``n_steps`` structure train steps at the
+    preset's full width (after 3 unprofiled ones), the kernels by device
+    time, and the port's kernels' share; the chrome trace goes to
+    ``out``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils.presets import structure_train_config
+
+    cfg = structure_train_config(max_epochs=1)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch, draws = train_batch(torch, cfg, gen, "structure")
+    trainer = build_trainer("structure", cfg, "cuda", steps_per_epoch=10_000)
+    for _ in range(3):
+        trainer.train_step(batch, **draws)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            trainer.train_step(batch, **draws)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(getattr(e, "device_time_total", 0), e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"  {n_steps} steps: wall {wall_us / 1e3:.2f} ms, device busy "
+          f"{busy / 1e3:.2f} ms, idle {100 * (1 - busy / wall_us):.1f}%")
+    for dev, count, key in rows[:15]:
+        print(f"  {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
+    ours = [r for r in rows if re.search(
+        r"\b(attention|layernorm)_\w+_kernel|column_sum_kernel", r[2])]
+    print(f"  the port's kernels: {sum(r[0] for r in ours) / 1e3:.3f} ms of "
+          f"device time in {sum(r[1] for r in ours)} calls")
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "structure_train_trace.json"))
+    del trainer
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+# the training shapes first (timed): B=64, Lq=Lk=128, the table at max_pos
+# 128; then the sampler's shapes, a ragged Lk and dead rows
+TRAIN_B, TRAIN_L = 64, 128
+TRAIN_ATTN_CASES = [
+    AttnCase("train self 64x128x128 +table", TRAIN_B, TRAIN_L, TRAIN_L,
+             TRAIN_L, True, True),
+    AttnCase("train cross 64x128x128", TRAIN_B, TRAIN_L, TRAIN_L, TRAIN_L,
+             False, True),
+    AttnCase("sampler 32x16x16 +table", B, L_LIG, L_LIG, MAX_POS, True,
+             False),
+    AttnCase("sampler 32x16x64", B, L_LIG, L_REC, MAX_POS, False, True),
+    AttnCase("sampler 32x64x64 +table", B, L_REC, L_REC, MAX_POS, True,
+             True),
+    AttnCase("ragged 32x16x50 +table", B, L_LIG, 50, MAX_POS, True, True),
+    AttnCase("dead rows 8x16x16 +table", 8, L_LIG, L_LIG, MAX_POS, True,
+             True, True),
+]
+TRAIN_LN_ROWS = [TRAIN_B * TRAIN_L, 512]
+DROPOUT = 0.1
+# The backward kernels against their plain versions, as the largest error
+# over the largest |value| of the plain result. f32: both sum the same f32
+# products in different orders (and the table gradient over (b, h) with
+# atomics, in an order that changes from run to run): 1e-4. bf16: the same
+# inputs and f32 arithmetic, but dQ, dK and dV are rounded to bf16 (a step
+# of 2^-8 relative) after sums in different orders, and P f is rounded to
+# bf16 before dV, so a value near a rounding boundary may land one step
+# away: 1e-2. The f32 table and LayerNorm weight gradients in a bf16 run
+# differ by summation order only: 1e-3. Dead rows (every key masked) sit
+# near -10^4, where an f32 step is 2^-10, so P = exp(x - lse) carries an
+# error of ~1e-3: 1e-2 there.
+BWD_REL = {"float32": 1e-4, "bfloat16": 1e-2}
+BWD_F32_OUT_REL = {"float32": 1e-4, "bfloat16": 1e-3}
+BWD_DEAD_REL = 1e-2
+# the row log-sum-exp of the training forward, against the plain version's
+# (values ~5-15, or ~-10^4 in dead rows where the f32 step is 2^-10)
+LSE_TOL = (1e-3, 1e-5)
+
+
+def compare_rel(label, got, want, rel) -> float:
+    """max |got - want| <= rel * max |want| (+ 1e-5, for a gradient that
+    is all but zero); returns the max error."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    ok = (bool(got.float().isfinite().all().item())
+          and err <= rel * scale + 1e-5)
+    print(f"  {label}: max_abs_err {err:.3e} (rel {rel:g} of max "
+          f"{scale:.3e}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    check(ok, f"{label}: kernel disagrees with its plain version")
+    return err
+
+
+def attention_train_check(torch, kernels, gen, case, dtype, p):
+    """The training forward and the backward of one case against their
+    plain versions (and, in f32, the backward against torch.autograd
+    through the plain forward). Returns the errors of the output and of
+    dQ."""
+    dname = str(dtype).split(".")[-1]
+    q, k, v, mask, tab = attention_inputs(torch, gen, case, dtype)
+    kw = dict(num_heads=HEADS, max_pos=case.max_pos)
+    keep = (torch.rand((case.b, HEADS, case.lq, case.lk), generator=gen,
+                       device="cuda") >= p) if p > 0 else None
+    tag = f"{case.label} {dname} p={p}"
+    out, lse = kernels.fused_attention_train(q, k, v, mask, tab, keep, p,
+                                             **kw)
+    want_out, want_lse = kernels.attention_train_plain(q, k, v, mask, tab,
+                                                       keep, p, **kw)
+    torch.cuda.synchronize()
+    tol = (ATTN_DEAD_F32_TOL if case.dead and dname == "float32"
+           else ATTN_TOL[dname])
+    out_err = compare(f"attention train fwd {tag}", out, want_out, *tol)
+    compare(f"attention train lse {tag}", lse, want_lse, *LSE_TOL)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    got = kernels.attention_backward(dout, q, k, v, lse, mask, tab,
+                                     keep, p, **kw)
+    want = kernels.attention_backward_plain(dout, q, k, v, lse, mask,
+                                            tab, keep, p, **kw)
+    torch.cuda.synchronize()
+    rel = BWD_DEAD_REL if case.dead else BWD_REL[dname]
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv", "dtable"), got, want):
+        if w is None:
+            check(g is None, f"{tag}: a table gradient without a table")
+            continue
+        r = rel
+        if name == "dtable":  # f32 in both runs
+            r = BWD_DEAD_REL if case.dead else BWD_F32_OUT_REL[dname]
+        errs[name] = compare_rel(f"attention bwd {name} {tag}", g, w, r)
+    if dtype == torch.float32:
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        tab_leaf = None if tab is None else tab.detach().clone(
+            ).requires_grad_()
+        ref = kernels.attention_autograd_plain(*leaves, mask, tab_leaf,
+                                               keep, p, **kw)
+        ref.backward(dout)
+        grads = [t.grad for t in leaves] + [
+            None if tab_leaf is None else tab_leaf.grad]
+        for name, g, w in zip(("dq", "dk", "dv", "dtable"), got, grads):
+            if w is not None:
+                compare_rel(f"attention bwd {name} {tag} vs autograd", g, w,
+                            BWD_DEAD_REL if case.dead else BWD_REL[dname])
+    return out_err, errs["dq"]
+
+
+def layernorm_train_check(torch, kernels, gen, rows, dtype, residual,
+                          affine):
+    """The LayerNorm backward against its plain version (and, in f32,
+    against torch.autograd through layernorm_plain). Returns dx's error."""
+    dname = str(dtype).split(".")[-1]
+    x, w, b, res, eps = ln_inputs(torch, gen, rows, HIDDEN, dtype, residual,
+                                  affine)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    got = kernels.layernorm_backward(dy, x, w, b, res, eps=eps)
+    want = kernels.layernorm_backward_plain(dy, x, w, b, res, eps=eps)
+    torch.cuda.synchronize()
+    label = (f"layernorm bwd {rows}x{HIDDEN}{' +residual' if residual else ''}"
+             f"{' +affine' if affine else ''} {dname}")
+    err = compare_rel(f"{label} dx", got[0], want[0], BWD_REL[dname])
+    for name, g, wnt in zip(("dw", "db"), got[1:], want[1:]):
+        check((g is None) == (wnt is None), f"{label}: {name} presence")
+        if wnt is not None:
+            compare_rel(f"{label} {name}", g, wnt, BWD_F32_OUT_REL[dname])
+    if dtype == torch.float32:
+        leaves = [None if t is None else t.detach().clone().requires_grad_()
+                  for t in (x, w, b, res)]
+        kernels.layernorm_plain(*leaves[:3], leaves[3], eps=eps).backward(dy)
+        for name, g, leaf in zip(("dx", "dw", "db", "dres"),
+                                 (got[0], got[1], got[2], got[0]), leaves):
+            if leaf is not None:
+                compare_rel(f"{label} {name} vs autograd", g, leaf.grad,
+                            BWD_REL[dname])
+    return err
+
+
+def training_kernel_checks(torch, kernels, gen) -> dict:
+    """Phase 9.1: the three training kernels against their plain versions
+    at the training and sampler shapes, f32 and bf16, dropout 0.1 and 0.
+    Returns the bf16 errors of the timed shapes, for the JSON record."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in TRAIN_ATTN_CASES:
+            for p in (DROPOUT, 0.0):
+                out_err, dq_err = attention_train_check(torch, kernels, gen,
+                                                        case, dtype, p)
+                if dtype == torch.bfloat16 and p == DROPOUT:
+                    errs["fused_attention_train", case.label] = out_err
+                    errs["attention_backward", case.label] = dq_err
+        for rows in TRAIN_LN_ROWS:
+            for residual in (False, True):
+                for affine in (False, True):
+                    err = layernorm_train_check(torch, kernels, gen, rows,
+                                                dtype, residual, affine)
+                    if dtype == torch.bfloat16 and residual and affine:
+                        errs["layernorm_backward", rows] = err
+    return errs
+
+
+def attention_train_cost(b, lq, lk, with_table, elem, backward):
+    """Bytes (each input read once, each output written once) and
+    operations (2 per multiply-add) of the training forward or of the
+    backward. Forward: q, k, v, the mask, the table window and the keep
+    mask read, the output and the lse written; QK^T, the bias and P V.
+    Backward: q, k, v, dO, the mask, the keep mask, the lse and the
+    table window read, dQ, dK, dV and the f32 table window written; the
+    recomputed scores and bias, dP, dV, dQ, dK, and with a table dQ's
+    table term and the table gradient."""
+    window = (lq + lk - 1) * HEAD_DIM if with_table else 0
+    keep = b * HEADS * lq * lk
+    lse = 4 * b * HEADS * lq
+    mask = 4 * b * lk
+    q_bytes, kv_bytes = elem * b * lq * HIDDEN, elem * b * lk * HIDDEN
+    product = 2 * b * HEADS * lq * lk * HEAD_DIM
+    if not backward:
+        nbytes = (2 * q_bytes + 2 * kv_bytes + elem * window + mask + keep
+                  + lse)
+        return nbytes, product * (3 if with_table else 2)
+    nbytes = (3 * q_bytes + 4 * kv_bytes + mask + keep + lse
+              + (elem + 4) * window)
+    return nbytes, product * (8 if with_table else 5)
+
+
+def layernorm_bwd_cost(rows, residual, affine, elem):
+    """x [, residual] and dy read, dx written, [w read, dw and db
+    written]; ~12 operations per element."""
+    nbytes = elem * rows * HIDDEN * (4 if residual else 3) \
+        + (12 * HIDDEN if affine else 0)
+    return nbytes, 12 * rows * HIDDEN
+
+
+def time_training_kernels(torch, kernels, gen, errs) -> list[dict]:
+    """Phase 9.2: the three training kernels' device time at the training
+    shapes (bf16, dropout 0.1) beside their plain versions, a PyTorch
+    yardstick (SDPA with the bias as a float mask, its forward and its
+    backward; the backward of F.layer_norm(x + r)) and the bound."""
+    record = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for case in TRAIN_ATTN_CASES[:2]:
+        q, k, v, mask, tab = attention_inputs(torch, gen, case,
+                                              torch.bfloat16)
+        kw = dict(num_heads=HEADS, max_pos=case.max_pos)
+        keep = torch.rand((case.b, HEADS, case.lq, case.lk), generator=gen,
+                          device="cuda") >= DROPOUT
+        q4, k4, v4 = (t.view(case.b, -1, HEADS, HEAD_DIM).transpose(1, 2)
+                      .detach().requires_grad_() for t in (q, k, v))
+        bias = mask[:, None, None, :]
+        if case.table:
+            idx = (torch.arange(case.lq, device="cuda")[:, None]
+                   - torch.arange(case.lk, device="cuda")[None, :]
+                   + case.max_pos - 1)
+            bias = bias + torch.einsum(
+                "bhqd,qkd->bhqk", q4.detach().float(),
+                tab.float()[idx]) / math.sqrt(HEAD_DIM)
+        bias = bias.to(torch.bfloat16)
+        out, lse = kernels.fused_attention_train(q, k, v, mask, tab, keep,
+                                                 DROPOUT, **kw)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        fwd = (lambda: kernels.fused_attention_train(
+            q, k, v, mask, tab, keep, DROPOUT, **kw))
+        fwd_plain = (lambda: kernels.attention_train_plain(
+            q, k, v, mask, tab, keep, DROPOUT, **kw))
+        bwd = (lambda: kernels.attention_backward(
+            dout, q, k, v, lse, mask, tab, keep, DROPOUT, **kw))
+        bwd_plain = (lambda: kernels.attention_backward_plain(
+            dout, q, k, v, lse, mask, tab, keep, DROPOUT, **kw))
+        lib_out = sdpa(q4, k4, v4, attn_mask=bias, dropout_p=DROPOUT)
+        dout4 = dout.view(case.b, -1, HEADS, HEAD_DIM).transpose(1, 2)
+        lib_fwd = (lambda: sdpa(q4.detach(), k4.detach(), v4.detach(),
+                                attn_mask=bias, dropout_p=DROPOUT))
+        lib_bwd = (lambda: torch.autograd.grad(
+            lib_out, (q4, k4, v4), dout4, retain_graph=True))
+        for name, fn, plain, lib, backward in (
+                ("fused_attention_train", fwd, fwd_plain, lib_fwd, False),
+                ("attention_backward", bwd, bwd_plain, lib_bwd, True)):
+            ms, host = time_call(torch, fn, iters=20)
+            plain_ms, _ = time_call(torch, plain, iters=3, reps=3)
+            lib_ms, _ = time_call(torch, lib, iters=20)
+            nbytes, ops = attention_train_cost(case.b, case.lq, case.lk,
+                                               case.table, 2, backward)
+            b_ms, b_by = bound(nbytes, ops, "bfloat16")
+            print(f"  {name} {case.label}: kernel {ms * 1e3:.1f} us (host "
+                  f"{host * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, "
+                  f"sdpa {'backward' if backward else 'forward'} "
+                  f"{lib_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us by "
+                  f"{b_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop)",
+                  flush=True)
+            record.append(dict(
+                name=name, route="cuda",
+                source=("e3diff_tpu_torch/csrc/attention_backward.cu"
+                        if backward else "e3diff_tpu_torch/csrc/attention.cu"),
+                replaces="e3diff_tpu/ops/pallas_kernels.py:110",
+                launches=0, max_abs_err=errs[name, case.label], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=f"{case.label} bf16 p={DROPOUT}"))
+    for rows in TRAIN_LN_ROWS[:1]:
+        x, w, b, res, eps = ln_inputs(torch, gen, rows, HIDDEN,
+                                      torch.bfloat16, True, True)
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        xl, rl = (t.detach().requires_grad_() for t in (x, res))
+        wl, bl = (t.to(x.dtype).requires_grad_() for t in (w, b))
+        lib_y = torch.nn.functional.layer_norm(xl + rl, (HIDDEN,), wl, bl,
+                                               eps)
+        ms, host = time_call(torch, lambda: kernels.layernorm_backward(
+            dy, x, w, b, res, eps=eps), iters=50)
+        plain_ms, _ = time_call(torch, lambda: kernels.layernorm_backward_plain(
+            dy, x, w, b, res, eps=eps), iters=10)
+        lib_ms, _ = time_call(torch, lambda: torch.autograd.grad(
+            lib_y, (xl, rl, wl, bl), dy, retain_graph=True), iters=50)
+        nbytes, ops = layernorm_bwd_cost(rows, True, True, 2)
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        label = f"{rows}x{HIDDEN} +residual +affine"
+        print(f"  layernorm_backward {label}: kernel {ms * 1e3:.1f} us (host "
+              f"{host * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, "
+              f"F.layer_norm(x + r) backward {lib_ms * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB)",
+              flush=True)
+        record.append(dict(
+            name="layernorm_backward", route="cuda",
+            source="e3diff_tpu_torch/csrc/layernorm_backward.cu",
+            replaces="e3diff_tpu/ops/pallas_kernels.py:168",
+            launches=0, max_abs_err=errs["layernorm_backward", rows], ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, shape=f"{label} bf16"))
+    return record
+
+
+# exact launches of one train step: every attention core and LayerNorm of
+# the forward (phases 6 and 8 count the same calls) through the training
+# forward kernels, then each one's backward kernel; an eval step launches
+# the inference kernels alone
+PER_TRAIN_STEP = {
+    "structure": {"fused_attention_train": 38, "fused_layernorm": 70,
+                  "attention_backward": 38, "layernorm_backward": 70},
+    "sequence": {"fused_attention_train": 15, "fused_layernorm": 32,
+                 "attention_backward": 15, "layernorm_backward": 32}}
+PER_EVAL_STEP = {"structure": {"fused_attention": 38, "fused_layernorm": 70},
+                 "sequence": {"fused_attention": 15, "fused_layernorm": 32}}
+TRAIN_STEPS = 20
+TRAIN_WARMUP = 2            # steps left out of the step-time median
+# One step through the kernels against the same step through the plain
+# versions: dropout 0, the same weights, batch and draws. A gradient's
+# error is its L2 norm relative to the gradient's norm plus 1e-3 of the
+# largest parameter gradient norm: the key biases' gradients are zero in
+# exact arithmetic (a softmax does not see a constant added to a row) and
+# both paths give rounding noise there.
+# - f32: both paths sum f32 products in other orders (~1e-6 relative per
+#   op) through the forward and back: the loss to 1e-4 relative, each
+#   gradient to 1e-3 of the plain path's.
+# - bf16: the activations and the gradients between layers are rounded
+#   to bf16 (2^-8 relative) in both paths, after sums in other orders, and
+#   the flips pass through every layer, so neither bf16 path is the
+#   reference: both are held to the f32 plain path's gradient, and the
+#   kernel path's error must be at most twice the plain path's own plus
+#   1e-3 (BF16_GRAD_FACTOR, BF16_GRAD_SLACK); the loss to 1e-2 relative of
+#   the bf16 plain path's.
+TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+F32_GRAD_TOL = 1e-3
+BF16_GRAD_FACTOR, BF16_GRAD_SLACK = 2.0, 1e-3
+
+
+def train_batch(torch, cfg, gen, kind):
+    """A batch of B=64 synthetic complexes padded to the preset's
+    max_seq_len, on the card, and fixed draws for it (t and eps for the
+    structure model, t in {0..T} and Gumbel noise for the sequence
+    model)."""
+    from e3diff_tpu_torch.data import LigandBindingSiteData, synthetic_complexes
+    from e3diff_tpu_torch.data.prefetch import to_device
+    from e3diff_tpu_torch.diffusion.d3pm import sample_gumbel
+    from e3diff_tpu_torch.ops.angles import wrap_angle
+
+    ds = LigandBindingSiteData(synthetic_complexes(n=TRAIN_B * 5 // 4, seed=8),
+                               "train", cfg.max_seq_len, cfg.pocket_ext,
+                               cfg.ligand_max_len)
+    batch = to_device(next(ds.batches(TRAIN_B)), "cuda")
+    check(tuple(batch["ligand_angles"].shape[:2]) == (TRAIN_B, TRAIN_L)
+          and tuple(batch["receptor_angles"].shape[:2]) == (TRAIN_B, TRAIN_L),
+          f"train batch shapes {batch['ligand_angles'].shape}")
+    lig = (TRAIN_B, cfg.max_seq_len)
+    if kind == "structure":
+        draws = {"t": torch.randint(0, cfg.timesteps, (TRAIN_B,),
+                                    generator=gen, device="cuda"),
+                 "noise": wrap_angle(torch.randn(*lig, 8, generator=gen,
+                                                 device="cuda"))}
+    else:
+        draws = {"t_int": torch.randint(0, cfg.timesteps + 1, (TRAIN_B,),
+                                        generator=gen, device="cuda"),
+                 "gumbel": sample_gumbel((*lig, 20), generator=gen,
+                                         device="cuda")}
+    return batch, draws
+
+
+def grad_errors(torch, grads, ref):
+    """Each parameter's ||g - ref|| over ||ref|| + 1e-3 max ||ref||."""
+    norms = torch.stack([r.float().norm() for r in ref])
+    diff = torch.stack([(g.float() - r.float()).norm()
+                        for g, r in zip(grads, ref)])
+    return diff / (norms + 1e-3 * norms.max())
+
+
+def train_step_grads(torch, kernels, trainer, batch, draws, kind, dname):
+    """One forward and backward of the loss at dropout 0 through the
+    kernels, then through the plain versions (autograd of the plain
+    forward): the kernel path's launches must be one train step's, and
+    the two losses agree. Returns both gradients."""
+    trainer.model.train()
+
+    def loss_and_grads():
+        loss, _ = trainer.loss(batch, **draws)
+        return loss.detach().float(), torch.autograd.grad(
+            loss, trainer.optimizer.params)
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k = loss_and_grads()
+    counts = launch_counts(kernels)
+    with plain_versions(kernels):
+        loss_p, grads_p = loss_and_grads()
+    torch.cuda.synchronize()
+    loss_rel = (abs(loss_k - loss_p) / abs(loss_p)).item()
+    print(f"  {kind} {dname} step, kernels vs plain: loss {loss_k.item():.6f}"
+          f" vs {loss_p.item():.6f} (rel {loss_rel:.2e}, tol "
+          f"{TRAIN_LOSS_TOL[dname]:g}); launches {counts}", flush=True)
+    check(bool(torch.isfinite(loss_k)) and loss_rel <= TRAIN_LOSS_TOL[dname],
+          f"{kind} {dname}: loss differs from the plain path by {loss_rel}")
+    check(counts == with_zeros(kernels, PER_TRAIN_STEP[kind]),
+          f"{kind} {dname}: launches {counts} != {PER_TRAIN_STEP[kind]}")
+    return grads_k, grads_p
+
+
+def train_grad_check(torch, kernels, build, batch, draws, kind):
+    """Phase 9.3: the gradients of one step through the kernels against
+    the plain versions, f32 directly and bf16 through their distance from
+    the f32 gradient (see the tolerances above TRAIN_LOSS_TOL). ``build(bf16)`` makes the
+    trainer, the same seeded weights at dropout 0."""
+    t = build(False)
+    names = t.optimizer.names
+    k32, p32 = train_step_grads(torch, kernels, t, batch, draws, kind,
+                                "float32")
+    del t
+    rel = grad_errors(torch, k32, p32)
+    worst = int(rel.argmax())
+    print(f"  {kind} float32 gradients, kernels vs plain: worst relative L2 "
+          f"{rel[worst].item():.2e} ({names[worst]}), median "
+          f"{rel.median().item():.2e} over {len(rel)} parameters (tol "
+          f"{F32_GRAD_TOL:g})", flush=True)
+    check(bool((rel <= F32_GRAD_TOL).all()), f"{kind} float32: gradient of "
+          f"{names[worst]} differs from the plain path by {rel[worst].item()}")
+    del k32
+    t = build(True)
+    k16, p16 = train_step_grads(torch, kernels, t, batch, draws, kind,
+                                "bfloat16")
+    del t
+    err_k, err_p = grad_errors(torch, k16, p32), grad_errors(torch, p16, p32)
+    excess = err_k - BF16_GRAD_FACTOR * err_p
+    worst = int(excess.argmax())
+    direct = grad_errors(torch, k16, p16)
+    print(f"  {kind} bfloat16 gradients against the f32 plain path: kernels "
+          f"median {err_k.median().item():.2e}, worst "
+          f"{err_k.max().item():.2e}; plain median "
+          f"{err_p.median().item():.2e}, worst {err_p.max().item():.2e}; "
+          f"closest to the bound: {names[worst]} (kernels "
+          f"{err_k[worst].item():.2e}, plain {err_p[worst].item():.2e}); "
+          f"kernels vs bf16 plain directly: median "
+          f"{direct.median().item():.2e}, worst {direct.max().item():.2e}",
+          flush=True)
+    check(bool((excess <= BF16_GRAD_SLACK).all()),
+          f"{kind} bfloat16: gradient of {names[worst]} is "
+          f"{err_k[worst].item()} from the f32 one, the plain path's "
+          f"{err_p[worst].item()}")
+
+
+def trainer_phase(torch, kernels, kind, gen) -> tuple[dict, dict]:
+    """Phases 9.3-9.4 for one model at its preset's full width (B=64,
+    length 128, bf16 compute, f32 master weights, dropout 0.1, AdamW):
+    the gradient check in f32 and bf16, then TRAIN_STEPS train steps on a
+    fixed batch with fixed draws (dropout draws from the trainer's
+    generator), one eval step, and one step with accum_steps 2,
+    cond_dropout 0.1 and an EMA. Returns the kernels' launches over the
+    train steps and the step's timings."""
+    import dataclasses
+
+    from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils.presets import (
+        sequence_train_config,
+        structure_train_config,
+    )
+
+    preset = (structure_train_config if kind == "structure"
+              else sequence_train_config)
+    # one epoch: Q12's warmup is int(0.1) = 0 epochs, so epoch 0 trains
+    cfg = preset(max_epochs=1)
+    batch, draws = train_batch(torch, cfg, gen, kind)
+    train_grad_check(
+        torch, kernels, lambda bf16: build_trainer(kind, dataclasses.replace(
+            cfg, dropout_p=0.0, bf16=bf16), "cuda", 1), batch, draws, kind)
+    torch.cuda.empty_cache()
+
+    trainer = build_trainer(kind, cfg, "cuda", steps_per_epoch=10_000)
+    n_params = sum(p.numel() for p in trainer.optimizer.params)
+    check(trainer.optimizer.schedule(0) > 0, "epoch 0 has learning rate 0")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    losses, norms, secs = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch, **draws)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = launch_counts(kernels)
+        check(counts == with_zeros(kernels, PER_TRAIN_STEP[kind]),
+              f"{kind} train step: launches {counts}")
+        for k, n in counts.items():
+            totals[k] += n
+        losses.append(m["train_loss"].item())
+        norms.append(m["grad_norm"].item())
+    peak = torch.cuda.max_memory_allocated()
+    kernels.reset_launch_counts()
+    v = trainer.eval_step(batch, **draws)
+    counts = launch_counts(kernels)
+    check(counts == with_zeros(kernels, PER_EVAL_STEP[kind]),
+          f"{kind} eval step: launches {counts}")
+    check(all(math.isfinite(x.item()) for x in v.values()),
+          f"{kind} eval step: not finite")
+    step_s = statistics.median(secs[TRAIN_WARMUP:])
+    print(f"  {kind} trainer, {n_params:,} parameters, B={TRAIN_B}, length "
+          f"{cfg.max_seq_len}, {'bf16' if cfg.bf16 else 'f32'} compute, "
+          f"dropout {cfg.dropout_p}: losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"  grad_norm {[round(x, 3) for x in norms]}; val_loss "
+          f"{v['val_loss'].item():.4f}; launches per train step "
+          f"{PER_TRAIN_STEP[kind]}, per eval step {PER_EVAL_STEP[kind]}")
+    print(f"  {kind} train step: {step_s * 1e3:.1f} ms (median of "
+          f"{TRAIN_STEPS - TRAIN_WARMUP} after {TRAIN_WARMUP} warm-up; "
+          f"first {secs[0] * 1e3:.1f} ms), {TRAIN_B / step_s:.1f} samples/s,"
+          f" max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{kind}: a loss or grad_norm is not finite")
+    first, last = (statistics.mean(losses[:5]), statistics.mean(losses[-5:]))
+    check(last < first, f"{kind}: the loss did not fall ({first} -> {last})")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # one step with two interleaved microbatches, conditioning dropout and
+    # an EMA: twice a step's launches
+    trainer = build_trainer(kind, dataclasses.replace(
+        cfg, accum_steps=2, cond_dropout=0.1, ema_decay=0.999), "cuda", 1)
+    kernels.reset_launch_counts()
+    m = trainer.train_step(batch, **draws)
+    counts = launch_counts(kernels)
+    print(f"  {kind} step with accum_steps 2, cond_dropout 0.1, EMA: loss "
+          f"{m['train_loss'].item():.4f}, grad_norm "
+          f"{m['grad_norm'].item():.3f}, launches {counts}", flush=True)
+    check(counts == with_zeros(kernels, {
+        k: 2 * n for k, n in PER_TRAIN_STEP[kind].items()}),
+        f"{kind} accumulated step: launches {counts}")
+    check(all(math.isfinite(x.item()) for x in m.values()),
+          f"{kind} accumulated step: not finite")
+    del trainer
+    torch.cuda.empty_cache()
+    return totals, {"ms_per_step": step_s * 1e3,
+                    "samples_per_s": TRAIN_B / step_s,
+                    "max_memory_allocated_gib": peak / 2**30}
+
+
+def train_cli_phase(torch, kernels):
+    """Phase 9.5: both train CLIs at their presets, one epoch of synthetic
+    complexes (one train and one validation batch of 64), into a temporary
+    directory; then DesignEngine.from_checkpoints on the two final
+    artifacts serves a design batch, held to phase 8's checks."""
+    from e3diff_tpu_torch.cli.train_sequence import main as train_sequence
+    from e3diff_tpu_torch.cli.train_structure import main as train_structure
+    from e3diff_tpu_torch.serving import DesignEngine, pocket_record
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, cli in (("structure", train_structure),
+                          ("sequence", train_sequence)):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            hist = cli(["--synthetic", "--synthetic_n", str(TRAIN_B * 5 // 4),
+                        "--max_epochs", "1", "--ema_decay", "0.999",
+                        "--ckpt_dir", f"{tmp}/{kind}"])
+            secs = time.perf_counter() - t0
+            counts = launch_counts(kernels)
+            want = with_zeros(kernels, {
+                k: PER_TRAIN_STEP[kind].get(k, 0) + PER_EVAL_STEP[kind].get(k, 0)
+                for k in (*PER_TRAIN_STEP[kind], *PER_EVAL_STEP[kind])})
+            print(f"  cli train_{kind}: {secs:.1f} s including the model "
+                  f"build and the checkpoints; history {hist}; launches "
+                  f"{counts}", flush=True)
+            check(len(hist) == 1 and all(
+                math.isfinite(hist[0][k]) for k in
+                ("train_loss", "val_loss", "grad_norm")),
+                f"cli train_{kind}: history {hist}")
+            check(counts == want, f"cli train_{kind}: launches {counts} != "
+                  f"{want}")
+            for slot in ("config.json", "last.pt", "best_val_model.pt",
+                         "final.pt", "final_ema.pt", "history.json"):
+                check(Path(tmp, kind, slot).is_file(),
+                      f"cli train_{kind} wrote no {slot}")
+        eng = DesignEngine.from_checkpoints(
+            f"{tmp}/structure/final.pt", f"{tmp}/sequence/final.pt",
+            transition="blosum", device="cuda", batch_size=DESIGN_BATCH,
+            sampler="ddim", ddim_steps=DDIM_STEPS)
+    requests = pocket_requests(DESIGN_BATCH, seed=9)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.design_records([pocket_record(*r) for r in requests],
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(10))
+    secs = time.perf_counter() - t0
+    counts = launch_counts(kernels)
+    want = with_zeros(kernels, {
+        k: PER_ENCODE[k] + DDIM_STEPS * PER_STEP[k] + SEQ_T * PER_SEQ_FORWARD[k]
+        for k in PER_STEP})
+    print(f"  DesignEngine from the trained final.pt files: {DESIGN_BATCH} "
+          f"designs in {secs:.3f} s, launches {counts}", flush=True)
+    check(counts == want, f"trained engine: launches {counts} != {want}")
+    check_designs(results, requests, "trained checkpoints")
 
 
 if __name__ == "__main__":

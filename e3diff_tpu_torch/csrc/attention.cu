@@ -49,9 +49,19 @@
 // The key count is a template parameter (16-row key tiles, 1..8), so the
 // score and output fragments stay in registers.
 //
-// f32 (chip_smoke.py's accuracy checks only): CUDA-core FMA in f32, no TF32,
-// one block per (head, batch), K, V and table rows staged as f32 with a
-// 65-float row stride, each warp on its own query rows.
+// f32 (chip_smoke.py's accuracy checks and f32 training): CUDA-core FMA in
+// f32, no TF32, one block per (head, batch), K, V and table rows staged as
+// f32 with a 65-float row stride, each warp on its own query rows.
+//
+// Training variant (template flag kTrain of both kernels, entry
+// e3d_attention_train): the same kernels, and in addition they write each
+// query row's log-sum-exp of the scaled, masked scores (f32, (B, H, Lq)) for
+// the backward (attention_backward.cu), and, given a keep mask (uint8,
+// (B, H, Lq, Lk)), multiply the f32 softmax P by keep / (1 - p) before P V,
+// as flax's Dropout does to the probabilities (e3diff_tpu/models/
+// blocks.py:162). The mask is drawn by the caller, so the kernel and its
+// plain version see the same bits. The inference entry e3d_attention
+// launches the kTrain = false instances, unchanged.
 
 #include <math.h>
 #include <stdint.h>
@@ -81,6 +91,10 @@ struct Args {
   const bf16* table;
   bf16* out;
   int B, Lq, Lk, H, max_pos;
+  // training only: keep mask (or null: no dropout), row log-sum-exp out
+  const uint8_t* keep;
+  float* lse;
+  float drop_scale;  // 1 / (1 - p)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -167,7 +181,7 @@ struct Layout {
   }
 };
 
-template <int NK, bool kTable>
+template <int NK, bool kTable, bool kTrain>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 attention_mma_kernel(Args a, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -302,6 +316,31 @@ attention_mma_kernel(Args a, float scale) {
     sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
     inv[hr] = 1.f / sum[hr];
   }
+  if (kTrain) {
+    const size_t bh = static_cast<size_t>(b) * a.H + h;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int l = l0 + g + 8 * hr;
+      if (t == 0 && l < Lq) a.lse[bh * Lq + l] = mx[hr] + logf(sum[hr]);
+    }
+    // P = s / sum, then dropped: P keep / (1 - p); the factor folds into s
+    const uint8_t* kp =
+        a.keep == nullptr ? nullptr : a.keep + bh * Lq * Lk;
+#pragma unroll
+    for (int j = 0; j < 2 * NK; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int l = l0 + g + 8 * (e >> 1), r = 8 * j + 2 * t + (e & 1);
+        float f = inv[e >> 1];
+        if (kp != nullptr)
+          f = (l < Lq && r < Lk && kp[static_cast<size_t>(l) * Lk + r])
+                  ? f * a.drop_scale
+                  : 0.f;
+        s[j][e] *= f;
+      }
+    }
+    inv[0] = inv[1] = 1.f;
+  }
 
   // O = P V: P (rounded to bf16) straight from the score fragments
   float o[8][4];
@@ -346,48 +385,49 @@ attention_mma_kernel(Args a, float scale) {
   }
 }
 
-template <int NK, bool kTable>
+template <int NK, bool kTable, bool kTrain>
 int launch_mma(const Args& a, cudaStream_t stream) {
   // above 48 KB a block needs the opt-in; set it once for the largest case
   static bool opted_in = false;
   if (!opted_in) {
     const size_t most = Layout(kMaxLen, NK * 16, kTable).bytes();
     cudaError_t e = cudaFuncSetAttribute(
-        attention_mma_kernel<NK, kTable>,
+        attention_mma_kernel<NK, kTable, kTrain>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
   const Layout lay(a.Lq, a.Lk, kTable);
-  attention_mma_kernel<NK, kTable>
+  attention_mma_kernel<NK, kTable, kTrain>
       <<<dim3(a.H, a.B), lay.lq_pad / kTile * 32, lay.bytes(), stream>>>(
           a, 1.0f / sqrtf(static_cast<float>(kD)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NK>
+template <int NK, bool kTrain>
 int launch_mma_nk(const Args& a, cudaStream_t stream) {
-  return a.table != nullptr ? launch_mma<NK, true>(a, stream)
-                            : launch_mma<NK, false>(a, stream);
+  return a.table != nullptr ? launch_mma<NK, true, kTrain>(a, stream)
+                            : launch_mma<NK, false, kTrain>(a, stream);
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+template <bool kTrain>
 int launch_bf16(const Args& a, cudaStream_t stream) {
   if (!(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
         aligned16(a.table) && aligned16(a.out)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   switch ((a.Lk + 15) / 16) {
-    case 1: return launch_mma_nk<1>(a, stream);
-    case 2: return launch_mma_nk<2>(a, stream);
-    case 3: return launch_mma_nk<3>(a, stream);
-    case 4: return launch_mma_nk<4>(a, stream);
-    case 5: return launch_mma_nk<5>(a, stream);
-    case 6: return launch_mma_nk<6>(a, stream);
-    case 7: return launch_mma_nk<7>(a, stream);
-    case 8: return launch_mma_nk<8>(a, stream);
+    case 1: return launch_mma_nk<1, kTrain>(a, stream);
+    case 2: return launch_mma_nk<2, kTrain>(a, stream);
+    case 3: return launch_mma_nk<3, kTrain>(a, stream);
+    case 4: return launch_mma_nk<4, kTrain>(a, stream);
+    case 5: return launch_mma_nk<5, kTrain>(a, stream);
+    case 6: return launch_mma_nk<6, kTrain>(a, stream);
+    case 7: return launch_mma_nk<7, kTrain>(a, stream);
+    case 8: return launch_mma_nk<8, kTrain>(a, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -407,12 +447,15 @@ size_t f32_smem_bytes(int Lq, int Lk, bool with_table) {
   return floats * sizeof(float);
 }
 
+template <bool kTrain>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ mask,
                      const float* __restrict__ table, float* __restrict__ out,
-                     int Lq, int Lk, int H, int max_pos, float scale) {
+                     int Lq, int Lk, int H, int max_pos, float scale,
+                     const uint8_t* __restrict__ keep, float* __restrict__ lse,
+                     float drop_scale) {
   extern __shared__ float fsmem[];
   float* Ks = fsmem;
   float* Vs = Ks + Lk * kStride;
@@ -484,10 +527,17 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     sum = warp_sum(sum);
+    const size_t row = (static_cast<size_t>(b) * H + h) * Lq + l;
+    if (kTrain && lane == 0) lse[row] = m + logf(sum);
 #pragma unroll
     for (int j = 0; j < kMaxLen / 32; ++j) {
       const int r = lane + 32 * j;
-      if (r < Lk) pw[r] = s[j] / sum;
+      if (r < Lk) {
+        float p = s[j] / sum;
+        if (kTrain && keep != nullptr)
+          p = keep[row * Lk + r] ? p * drop_scale : 0.f;
+        pw[r] = p;
+      }
     }
     __syncwarp();
 
@@ -503,24 +553,50 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <bool kTrain>
 int launch_f32(const void* q, const void* k, const void* v, const void* mask,
                const void* table, void* out, int B, int Lq, int Lk, int H,
-               int max_pos, cudaStream_t stream) {
+               int max_pos, const uint8_t* keep, float* lse,
+               float drop_scale, cudaStream_t stream) {
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attention_f32_kernel<kTrain>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(f32_smem_bytes(kMaxLen, kMaxLen, true)));
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
-  attention_f32_kernel<<<dim3(H, B), kWarps * 32,
-                         f32_smem_bytes(Lq, Lk, table != nullptr), stream>>>(
+  attention_f32_kernel<kTrain><<<dim3(H, B), kWarps * 32,
+                                 f32_smem_bytes(Lq, Lk, table != nullptr),
+                                 stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(mask),
       static_cast<const float*>(table), static_cast<float*>(out), Lq, Lk, H,
-      max_pos, 1.0f / sqrtf(static_cast<float>(kD)));
+      max_pos, 1.0f / sqrtf(static_cast<float>(kD)), keep, lse, drop_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTrain>
+int launch(const void* q, const void* k, const void* v, const void* mask,
+           const void* table, void* out, int B, int Lq, int Lk, int H,
+           int max_pos, const uint8_t* keep, float* lse, float drop_scale,
+           int dtype, cudaStream_t s) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lq > kMaxLen || Lk <= 0 || Lk > kMaxLen)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (table != nullptr && (Lq > max_pos || Lk > max_pos))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kF32)
+    return launch_f32<kTrain>(q, k, v, mask, table, out, B, Lq, Lk, H,
+                              max_pos, keep, lse, drop_scale, s);
+  if (dtype == kBF16)
+    return launch_bf16<kTrain>(
+        Args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+             static_cast<const bf16*>(v), static_cast<const float*>(mask),
+             static_cast<const bf16*>(table), static_cast<bf16*>(out), B, Lq,
+             Lk, H, max_pos, keep, lse, drop_scale},
+        s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -533,19 +609,25 @@ extern "C" int e3d_attention(const void* q, const void* k, const void* v,
                              const void* mask, const void* table, void* out,
                              int B, int Lq, int Lk, int H, int max_pos,
                              int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lq > kMaxLen || Lk <= 0 || Lk > kMaxLen)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (table != nullptr && (Lq > max_pos || Lk > max_pos))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch_f32(q, k, v, mask, table, out, B, Lq, Lk, H, max_pos, s);
-  if (dtype == kBF16)
-    return launch_bf16(
-        Args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-             static_cast<const bf16*>(v), static_cast<const float*>(mask),
-             static_cast<const bf16*>(table), static_cast<bf16*>(out), B, Lq,
-             Lk, H, max_pos},
-        s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(q, k, v, mask, table, out, B, Lq, Lk, H, max_pos,
+                       nullptr, nullptr, 1.f, dtype,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The training forward: as e3d_attention, and in addition lse (B, H, Lq)
+// f32 receives each row's log-sum-exp; keep (B, H, Lq, Lk) uint8, or null
+// for no dropout, drops P where it is 0 and scales it by drop_scale where
+// it is not.
+extern "C" int e3d_attention_train(const void* q, const void* k,
+                                   const void* v, const void* mask,
+                                   const void* table, const void* keep,
+                                   void* out, void* lse, int B, int Lq,
+                                   int Lk, int H, int max_pos,
+                                   float drop_scale, int dtype,
+                                   void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(q, k, v, mask, table, out, B, Lq, Lk, H, max_pos,
+                      static_cast<const uint8_t*>(keep),
+                      static_cast<float*>(lse), drop_scale, dtype,
+                      static_cast<cudaStream_t>(stream));
 }

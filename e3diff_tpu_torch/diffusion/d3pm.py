@@ -1,7 +1,7 @@
-"""Discrete D3PM over the 20 amino-acid classes, its reverse process
-(counterpart of e3diff_tpu/diffusion/d3pm.py; reference sequence_model/
-sample.py:112-229). The forward noising is a training op and comes with
-the training slice.
+"""Discrete D3PM over the 20 amino-acid classes (counterpart of
+e3diff_tpu/diffusion/d3pm.py): the forward noising of training (reference
+PeptideDiff.apply_aa_noise, sequence_model/model.py:291-311) and the
+reverse process (sequence_model/sample.py:112-229).
 
 Quirks kept exactly (SURVEY.md):
   Q3 - the transition is indexed by alpha_bar(t), not t/T;
@@ -62,6 +62,38 @@ class D3PMDiffusion:
         idx = torch.full((b,), step, dtype=torch.long,
                          device=self.alphas_bar.device)
         return self.transition.get_Qt_bar(self.alphas_bar[idx])
+
+    def qt_bar_from_t_int(self, t_int):
+        """(B, K, K) Q_bar at per-example integer steps, indexed by
+        alpha_bar(t) (Q3): the transition maps alpha_bar through its own
+        ladder."""
+        idx = torch.as_tensor(t_int).to(torch.long).reshape(-1)
+        return self.transition.get_Qt_bar(
+            self.alphas_bar[idx.to(self.alphas_bar.device)])
+
+    def aa_noise_probs(self, ligand_seq, t_int):
+        """Per-token unnormalised substitution probabilities (B, L, K):
+        prob[b, l, i] = sum_j Q_bar[b, i, j] x[b, l, j], the column
+        orientation of Q8. ligand_seq: (B, L, K) one-hot, all-zero rows at
+        padding; t_int: (B,) steps in 0..T inclusive."""
+        return torch.einsum("bij,blj->bli", self.qt_bar_from_t_int(t_int),
+                            ligand_seq.float())
+
+    def apply_aa_noise(self, ligand_seq, t_int, *,
+                       generator: torch.Generator | None = None,
+                       gumbel=None):
+        """Noised one-hots in ligand_seq's dtype: argmax(log p + Gumbel)
+        per token (jax.random.categorical's draw), ``gumbel`` (B, L, K)
+        replacing the draw from ``generator``; a token of zero probability
+        (padding) becomes class 0."""
+        probs = self.aa_noise_probs(ligand_seq, t_int)
+        logits = torch.log(torch.clamp(probs, min=1e-30))
+        if gumbel is None:
+            gumbel = sample_gumbel(probs.shape, generator=generator,
+                                   device=probs.device)
+        draws = torch.argmax(logits + gumbel, dim=-1)
+        draws = torch.where(probs.sum(-1) > 0, draws, 0)
+        return F.one_hot(draws, self.num_classes).to(ligand_seq.dtype)
 
     def posterior_probs(self, x_t, pred_logits, s_int: int,
                         t_int: int | None = None):

@@ -1,11 +1,12 @@
 """Continuous wrapped-Gaussian DDPM over backbone angles (counterpart of
-e3diff_tpu/diffusion/gaussian.py): the reverse process, ancestral (DDPM)
-and DDIM.
+e3diff_tpu/diffusion/gaussian.py): the forward noising of training and the
+reverse process, ancestral (DDPM) and DDIM.
 
 The schedule terms are float32 tensors on the sampler's device. Each
-reverse loop is a Python loop over the timestep ladder; its noise comes
-from a ``torch.Generator`` on the device, or is injected (``noise=``) so
-that tests can hand both packages the same draws.
+reverse loop is a Python loop over the timestep ladder. Its noise, and
+the training noise, comes from a ``torch.Generator`` on the device, or is
+injected (``noise=``, ``t=``) so that tests can hand both packages the
+same draws.
 """
 
 from __future__ import annotations
@@ -57,6 +58,26 @@ class GaussianAngleDiffusion:
 
     def _at(self, name, t):
         return self.terms[name][t][:, None, None]
+
+    def q_sample(self, x0, t, noise):
+        """x_t = wrap(sqrt(a_bar_t) x0 + sqrt(1 - a_bar_t) eps); t: (B,)
+        ints (_add_noise_by_timestep, structure_model/dataset.py:214-229)."""
+        return wrap_angle(self._at("sqrt_alphas_cumprod", t) * x0
+                          + self._at("sqrt_one_minus_alphas_cumprod", t)
+                          * noise)
+
+    def noise_batch(self, x0, *, generator: torch.Generator | None = None,
+                    t=None, noise=None):
+        """(t, eps, x_t) for a training batch: t uniform in [0, T) and eps
+        wrapped N(0, I), drawn from ``generator`` in that order unless
+        injected."""
+        if t is None:
+            t = torch.randint(0, self.timesteps, (x0.shape[0],),
+                              generator=generator, device=x0.device)
+        if noise is None:
+            noise = sample_wrapped_noise(x0.shape, generator=generator,
+                                         device=x0.device, dtype=x0.dtype)
+        return t, noise, self.q_sample(x0, t, noise)
 
     def p_mean(self, x_t, eps_hat, t):
         """DDPM posterior mean for eps-prediction; t: (B,) ints."""

@@ -1,14 +1,16 @@
 """Neural blocks of the denoisers (counterpart of
-e3diff_tpu/models/blocks.py), for inference.
+e3diff_tpu/models/blocks.py).
 
 Submodule names follow the reference HF-BERT state_dict layout (the one
 e3diff_tpu/utils/torch_port.py reads and writes), so
 ``load_state_dict(strict=True)`` takes both the JAX export and the
 reference's published checkpoints.
 
-Every attention core goes through ``kernels.fused_attention`` and every
-LayerNorm through ``kernels.fused_layernorm``; the Linears, GELU (exact
-erf) and SiLU stay plain torch, as the JAX package leaves them to XLA.
+Every attention core goes through ``kernels.attention`` and every
+LayerNorm through ``kernels.layernorm``: the inference kernels when no
+gradient is needed, the training kernels (forward and backward) when one
+is; the Linears, GELU (exact erf) and SiLU stay plain torch, as the JAX
+package leaves them to XLA.
 
 Numerics that differ from the JAX path, in the compute dtype bf16 only:
 JAX adds each residual in bf16 before ``nn.LayerNorm`` and takes the
@@ -16,7 +18,14 @@ attention softmax in bf16, while the kernels (like the Pallas kernels)
 add the residual and take the softmax in f32. In f32 the two agree to
 rounding.
 
-Dropout is a training op and is absent: the training slice adds it.
+Dropout sits where the JAX package has it (blocks.py:162, :229, :262,
+:393, :397, :435) and is active only under ``model.train()``: on the
+attention probabilities inside the kernel, and on the attention output,
+the MLP outputs and the embeddings as ``Dropout`` modules. Its keep masks
+come from the generator ``set_dropout_generator`` hands every dropout
+site. Training keeps f32 master weights and computes in the config's
+dtype, as the JAX ``bf16`` preset does; a Linear stored in bf16 or int8
+refuses to train.
 """
 
 from __future__ import annotations
@@ -46,6 +55,32 @@ def kernel_mask(mask: torch.Tensor, cfg: TransformerConfig):
     return extend_attention_mask(mask, cfg.dtype).float()
 
 
+class Dropout(nn.Module):
+    """flax's Dropout: under ``train()``, x / (1 - p) where a uniform draw
+    from ``generator`` is >= p, else 0; the identity in eval mode. No
+    parameters, so the state_dict keys around it do not change."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator):
+    """Every dropout site of ``model`` (the Dropout modules and the
+    attention cores) draws its keep masks from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, (Dropout, MultiHeadAttention)):
+            m.generator = generator
+
+
 class Linear(nn.Module):
     """y = x W^T + b in the compute dtype. ``weight`` is (out, in) and is
     stored f32, bf16, or int8 beside a per-output-channel ``weight_scale``
@@ -64,6 +99,12 @@ class Linear(nn.Module):
         self.register_buffer("weight_scale", None)
 
     def forward(self, x):
+        if self.training and (self.weight_scale is not None
+                              or self.weight.dtype != torch.float32):
+            raise RuntimeError(
+                f"Linear({self.in_features}, {self.out_features}): weights "
+                f"stored as {self.weight.dtype} for inference do not train; "
+                "train f32 weights")
         w = dequantize(self.weight, self.weight_scale).to(self.dtype)
         return F.linear(x.to(self.dtype), w, self.bias.to(self.dtype))
 
@@ -99,8 +140,8 @@ class LayerNorm(nn.Module):
             self.weight = self.bias = None
 
     def forward(self, x, residual=None):
-        return kernels.fused_layernorm(x, self.weight, self.bias, residual,
-                                       eps=self.eps)
+        return kernels.layernorm(x, self.weight, self.bias, residual,
+                                 eps=self.eps)
 
 
 class MultiHeadAttention(nn.Module):
@@ -119,6 +160,7 @@ class MultiHeadAttention(nn.Module):
                 cfg.max_position_embeddings, cfg.head_dim, device)
         else:
             self.distance_embedding = None
+        self.generator: torch.Generator | None = None
 
     def project_kv(self, kv):
         """K and V of a memory, flat (B, Lk, H*D) each."""
@@ -128,10 +170,12 @@ class MultiHeadAttention(nn.Module):
         k, v = cached_kv if cached_kv is not None else self.project_kv(kv)
         table = (None if self.distance_embedding is None
                  else self.distance_embedding.table(self.cfg.dtype))
-        return kernels.fused_attention(
+        return kernels.attention(
             self.query(x), k, v, mask_add, table,
             num_heads=self.cfg.num_heads,
-            max_pos=self.cfg.max_position_embeddings)
+            max_pos=self.cfg.max_position_embeddings,
+            dropout_p=self.cfg.attention_dropout if self.training else 0.0,
+            generator=self.generator)
 
 
 class AttentionBlock(nn.Module):
@@ -146,11 +190,13 @@ class AttentionBlock(nn.Module):
             "dense": Linear(h, h, cfg.dtype, device),
             "LayerNorm": LayerNorm(h, cfg.layer_norm_eps, device=device),
         })
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, kv, mask_add, cached_kv=None):
         ctx = self.self(x, x if kv is None and cached_kv is None else kv,
                         mask_add, cached_kv)
-        return self.output["LayerNorm"](self.output["dense"](ctx), residual=x)
+        return self.output["LayerNorm"](
+            self.dropout(self.output["dense"](ctx)), residual=x)
 
 
 class TransformerLayer(nn.Module):
@@ -169,6 +215,7 @@ class TransformerLayer(nn.Module):
             "dense": Linear(cfg.intermediate_size, h, cfg.dtype, device),
             "LayerNorm": LayerNorm(h, cfg.layer_norm_eps, device=device),
         })
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, mask_add, enc_out=None, enc_mask_add=None,
                 cross_kv=None):
@@ -177,7 +224,8 @@ class TransformerLayer(nn.Module):
                                                 or cross_kv is not None):
             x = self.crossattention(x, enc_out, enc_mask_add, cross_kv)
         y = F.gelu(self.intermediate["dense"](x))
-        return self.output["LayerNorm"](self.output["dense"](y), residual=x)
+        return self.output["LayerNorm"](
+            self.dropout(self.output["dense"](y)), residual=x)
 
 
 class TransformerStack(nn.Module):
@@ -217,10 +265,12 @@ class SELayer(nn.Module):
             Linear(h, 6 * h, cfg.dtype, device))
         self.attn = AttentionBlock(cfg, cross=False, device=device)
         self.norm1 = LayerNorm(h, 1e-5, affine=False)
-        # indices 0 and 3 as in the reference (1: GELU, 2: its dropout)
+        # Linears at indices 0 and 3 as in the reference (1: GELU, 2 and
+        # 4: dropout, JAX blocks.py:393, :395)
         self.mlp = nn.Sequential(
-            Linear(h, mlp_dim, cfg.dtype, device), nn.GELU(), nn.Identity(),
-            Linear(mlp_dim, h, cfg.dtype, device))
+            Linear(h, mlp_dim, cfg.dtype, device), nn.GELU(),
+            Dropout(cfg.dropout), Linear(mlp_dim, h, cfg.dtype, device),
+            Dropout(cfg.dropout))
         self.norm2 = LayerNorm(h, 1e-5, affine=False)
 
     def forward(self, x, c, mask_add):
@@ -253,16 +303,18 @@ class GaussianFourierProjection(nn.Module):
 
 
 class FeatureEmbedding(nn.Module):
-    """Linear -> LayerNorm input embedding (reference BertEmbeddings)."""
+    """Linear -> LayerNorm -> Dropout input embedding (reference
+    BertEmbeddings)."""
 
     def __init__(self, cfg: TransformerConfig, in_features: int, device=None):
         super().__init__()
         self.linear = Linear(in_features, cfg.hidden_size, cfg.dtype, device)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                    device=device)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x):
-        return self.LayerNorm(self.linear(x))
+        return self.dropout(self.LayerNorm(self.linear(x)))
 
 
 class MLPHead(nn.Module):

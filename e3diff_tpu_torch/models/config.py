@@ -1,6 +1,7 @@
 """Typed transformer configuration (counterpart of
 e3diff_tpu/models/config.py, without the XLA layout knobs remat,
-scan_layers and self_attention_impl, which do not change the numbers)."""
+scan_layers and self_attention_impl, which do not change the numbers, and
+without param_dtype: parameters are f32)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,11 @@ class TransformerConfig:
     num_layers: int = 12
     intermediate_size: int = 1024
     max_position_embeddings: int = 128
+    # dropout rates, active only in train mode: ``dropout`` on the
+    # attention and MLP outputs and the embeddings, ``attention_dropout``
+    # on the attention probabilities
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     # "relative_key" (HF learned relative scores) or "absolute" (no
     # positional term: the reference has no absolute embeddings at all)

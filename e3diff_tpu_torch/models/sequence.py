@@ -73,10 +73,10 @@ class SequenceDenoiser(nn.Module):
                 init_torch_default_(self, gen)
         self.eval()
 
-    @torch.no_grad()
     def forward(self, timestep, noised_ligand_seq, ligand_angles,
                 ligand_mask, receptor_seq, receptor_angles, receptor_mask):
-        """Logits (B, L_lig, n_classes) in the compute dtype.
+        """Logits (B, L_lig, n_classes) in the compute dtype;
+        differentiable (the sampler calls it without autograd).
 
         timestep: (B,) or (B, 1); noised_ligand_seq: (B, L, 20) one-hot;
         the masks are (B, L) 0/1 (a dead batch slot has all zeros)."""

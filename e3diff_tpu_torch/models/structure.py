@@ -10,7 +10,10 @@ e3diff_tpu/models/structure.py): a conditional BERT encoder-decoder.
 
 The receptor encoding and the decoder's cross-attention K/V do not depend
 on the timestep, so samplers run ``encode_receptor`` and
-``precompute_cross_kv`` once per batch and only ``decode`` per step.
+``precompute_cross_kv`` once per batch and only ``decode`` per step; those
+three run without autograd. ``forward`` (the training path) runs the same
+bodies with autograd, the decoder projecting the cross-attention K/V
+itself, as the JAX model's ``__call__`` does.
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ class StructureDenoiser(nn.Module):
     @torch.no_grad()
     def encode_receptor(self, receptor_seq, receptor_angles, receptor_mask):
         """Timestep-independent pocket encoding -> (B, L, H) memory."""
+        return self._encode(receptor_seq, receptor_angles, receptor_mask)
+
+    def _encode(self, receptor_seq, receptor_angles, receptor_mask):
         rec_ext = kernel_mask(receptor_mask, self.encoder_config)
         rec_angles = self.receptor_angle_emb(receptor_angles)
         rec_seq = self.receptor_seq_emb(receptor_seq)
@@ -79,6 +85,11 @@ class StructureDenoiser(nn.Module):
         """Predict epsilon for the ligand angles against a pocket encoding;
         ``cross_kv`` (from ``precompute_cross_kv``) replaces the K/V
         projections of ``encoder_out``."""
+        return self._decode(timestep, noised_ligand_angles, ligand_mask,
+                            encoder_out, receptor_mask, cross_kv)
+
+    def _decode(self, timestep, noised_ligand_angles, ligand_mask,
+                encoder_out, receptor_mask, cross_kv=None):
         dec = self.decoder_config
         lig_ext = kernel_mask(ligand_mask, dec)
         rec_ext = kernel_mask(receptor_mask, dec)
@@ -92,10 +103,11 @@ class StructureDenoiser(nn.Module):
 
     def forward(self, timestep, noised_ligand_angles, ligand_mask,
                 receptor_seq, receptor_angles, receptor_mask):
-        enc_out = self.encode_receptor(receptor_seq, receptor_angles,
-                                       receptor_mask)
-        return self.decode(timestep, noised_ligand_angles, ligand_mask,
-                           enc_out, receptor_mask)
+        """Epsilon for the noised ligand angles, (B, L, 8) in the compute
+        dtype; differentiable."""
+        enc_out = self._encode(receptor_seq, receptor_angles, receptor_mask)
+        return self._decode(timestep, noised_ligand_angles, ligand_mask,
+                            enc_out, receptor_mask)
 
 
 def state_dict_numel(model: nn.Module) -> int:

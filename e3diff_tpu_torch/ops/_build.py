@@ -101,5 +101,12 @@ def load_library() -> ctypes.CDLL:
         lib.e3d_layernorm.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i,
                                       p]
         lib.e3d_layernorm.restype = i
+        f = ctypes.c_float
+        lib.e3d_attention_train.argtypes = [p] * 8 + [i] * 5 + [f, i, p]
+        lib.e3d_attention_train.restype = i
+        lib.e3d_attention_backward.argtypes = [p] * 13 + [i] * 5 + [f, i, p]
+        lib.e3d_attention_backward.restype = i
+        lib.e3d_layernorm_backward.argtypes = [p] * 9 + [i, i, f, i, i, p]
+        lib.e3d_layernorm_backward.restype = i
         _lib = lib
     return _lib

@@ -1,5 +1,5 @@
-"""The denoiser's two hand-written CUDA kernels, their plain versions and
-their launch counters.
+"""The denoisers' hand-written CUDA kernels, their plain versions, their
+launch counters and the autograd functions that train through them.
 
 * ``fused_attention`` (``csrc/attention.cu``) replaces the Pallas kernel
   ``e3diff_tpu/ops/pallas_kernels.py::fused_attention``: the multi-head
@@ -8,12 +8,26 @@ their launch counters.
 * ``fused_layernorm`` (``csrc/layernorm.cu``) replaces
   ``e3diff_tpu/ops/pallas_kernels.py::fused_layernorm``: residual add +
   LayerNorm with f32 statistics and an optional affine.
+* ``fused_attention_train`` (``csrc/attention.cu``, the kernels' training
+  variant): the same core, with the attention-probability dropout of
+  ``e3diff_tpu/models/blocks.py:162`` applied from a keep mask, and each
+  query row's log-sum-exp written for the backward.
+* ``attention_backward`` (``csrc/attention_backward.cu``) and
+  ``layernorm_backward`` (``csrc/layernorm_backward.cu``): the gradients
+  that XLA's autodiff computes for the JAX package's einsum attention and
+  ``nn.LayerNorm`` (the Pallas kernels are forward-only).
 
-Both are bound by bytes on the H100, not by flops; each source file says
-what its design does about that. A wrapper given CUDA tensors launches its
-kernel (and adds one to its ``launches`` count) or raises; given CPU
-tensors it runs the plain PyTorch version beside it, which follows the
-Pallas body step by step and is the kernel's oracle on the card.
+A wrapper given CUDA tensors launches its kernel (and adds one to its
+``launches`` count) or raises; given CPU tensors it runs the plain PyTorch
+version beside it, which follows the Pallas body, or the gradient's
+formulas, step by step and is the kernel's oracle on the card.
+
+The models call ``attention`` and ``layernorm``: without a gradient to
+compute they take the inference kernels; when an input needs a gradient
+(or attention dropout is on) they go through ``attention_autograd`` /
+``layernorm_autograd``, whose CUDA path is ``FusedAttentionFn`` /
+``FusedLayerNormFn`` and whose CPU path is the plain version, which
+autograd differentiates.
 """
 
 from __future__ import annotations
@@ -65,30 +79,175 @@ def _ptr(t):
 # attention
 # ---------------------------------------------------------------------------
 
+def _rel_index(lq: int, lk: int, max_pos: int, device):
+    """(Lq, Lk) table row of each (query, key) pair: l - r + max_pos - 1."""
+    return (torch.arange(lq, device=device)[:, None]
+            - torch.arange(lk, device=device)[None, :] + max_pos - 1)
+
+
+def _heads(t, num_heads: int):
+    """(B, L, H*D) -> (B, L, H, D) in f32."""
+    b, n, f = t.shape
+    return t.reshape(b, n, num_heads, f // num_heads).float()
+
+
+def _attention_logits(q, k, mask_add, rel_table, num_heads: int,
+                      max_pos: int):
+    """f32 (B, H, Lq, Lk) logits: (q k^T [+ q . table]) / sqrt(D) + mask."""
+    lq, lk = q.shape[1], k.shape[1]
+    q4, k4 = _heads(q, num_heads), _heads(k, num_heads)
+    s = torch.einsum("bqhd,bkhd->bhqk", q4, k4)
+    if rel_table is not None:
+        pe = rel_table.float()[_rel_index(lq, lk, max_pos, q.device)]
+        s = s + torch.einsum("bqhd,qkd->bhqk", q4, pe)      # (Lq, Lk, D) pe
+    return (s * (1.0 / math.sqrt(q4.shape[-1]))
+            + mask_add.float()[:, None, None, :])
+
+
+def _softmax_pv(x, v, num_heads: int, keep=None, dropout_p: float = 0.0):
+    """f32 softmax of the logits x, dropped by ``keep`` (P keep / (1 - p)),
+    rounded to v's type, times V: the (B, Lq, H*D) output in f32, and the
+    rows' log-sum-exp (B, H, Lq)."""
+    m = x.amax(dim=-1, keepdim=True)
+    p = torch.exp(x - m)
+    total = p.sum(dim=-1, keepdim=True)
+    p = p / total
+    if keep is not None:
+        p = p * keep.to(p.dtype) * drop_scale(dropout_p)
+    p = p.to(v.dtype).float()
+    o = torch.einsum("bhqk,bkhd->bqhd", p, _heads(v, num_heads))
+    b, lq = o.shape[:2]
+    return o.reshape(b, lq, -1), (m + torch.log(total)).squeeze(-1)
+
+
+def drop_scale(dropout_p: float) -> float:
+    """1 / (1 - p) as the kernels take it, an f32 number."""
+    return float(torch.tensor(1.0 / (1.0 - dropout_p), dtype=torch.float32))
+
+
 def attention_plain(q, k, v, mask_add, rel_table=None, *, num_heads: int,
                     max_pos: int):
     """Plain PyTorch version of ``fused_attention``: per head, f32 scores
     (+ the relative bias), (scores + bias) / sqrt(D) + mask, f32 softmax,
     P rounded to v's type, P V; output in q's type."""
+    x = _attention_logits(q, k, mask_add, rel_table, num_heads, max_pos)
+    return _softmax_pv(x, v, num_heads)[0].to(q.dtype)
+
+
+def attention_train_plain(q, k, v, mask_add, rel_table=None, keep=None,
+                          dropout_p: float = 0.0, *, num_heads: int,
+                          max_pos: int):
+    """Plain PyTorch version of ``fused_attention_train``: as
+    ``attention_plain``, the f32 softmax multiplied by keep / (1 - p)
+    before it is rounded to v's type (keep None: no dropout). Returns the
+    output in q's type and the rows' f32 log-sum-exp (B, H, Lq)."""
+    x = _attention_logits(q, k, mask_add, rel_table, num_heads, max_pos)
+    out, lse = _softmax_pv(x, v, num_heads, keep, dropout_p)
+    return out.to(q.dtype), lse
+
+
+def attention_autograd_plain(q, k, v, mask_add, rel_table, keep,
+                             dropout_p: float, *, num_heads: int,
+                             max_pos: int):
+    """``attention_train_plain``'s output alone: what autograd
+    differentiates on the CPU (and under ``chip_smoke.py``'s
+    ``plain_versions``)."""
+    return attention_train_plain(q, k, v, mask_add, rel_table, keep,
+                                 dropout_p, num_heads=num_heads,
+                                 max_pos=max_pos)[0]
+
+
+def attention_backward_plain(dout, q, k, v, lse, mask_add, rel_table=None,
+                             keep=None, dropout_p: float = 0.0, *,
+                             num_heads: int, max_pos: int):
+    """Plain PyTorch version of ``attention_backward``, the formulas step
+    by step (scale = 1/sqrt(D), f = keep / (1 - p) or 1):
+    P = exp(x - lse); dV = (P f rounded to v's type)^T dO;
+    dP = (dO V^T) f; delta = rowsum(P dP); dS = P (dP - delta) scale;
+    dQ = dS K + the table term; dK = dS^T Q;
+    dtable[l - r + max_pos - 1] += dS q. delta equals rowsum(dO O) for the
+    exact output O = (P f) V; summed from P and dP it does not carry the
+    rounding of a bf16 O, as autograd's softmax gradient does not.
+    Returns dq, dk, dv in q's type and the f32 table gradient (None
+    without a table)."""
+    lq, lk = q.shape[1], k.shape[1]
+    q4, k4, v4 = (_heads(t, num_heads) for t in (q, k, v))
+    g4 = _heads(dout, num_heads)
+    scale = 1.0 / math.sqrt(q4.shape[-1])
+    x = _attention_logits(q, k, mask_add, rel_table, num_heads, max_pos)
+    p = torch.exp(x - lse[..., None])
+    f = (keep.to(p.dtype) * drop_scale(dropout_p) if keep is not None
+         else None)
+    pd = (p if f is None else p * f).to(v.dtype).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd, g4)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g4, v4)
+    if f is not None:
+        dp = dp * f
+    delta = (p * dp).sum(-1, keepdim=True)                 # (B, H, Lq, 1)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k4)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q4)
+    dtable = None
+    if rel_table is not None:
+        idx = _rel_index(lq, lk, max_pos, q.device)
+        pe = rel_table.float()[idx]
+        dq = dq + torch.einsum("bhqk,qkd->bqhd", ds, pe)
+        dpe = torch.einsum("bhqk,bqhd->qkd", ds, q4)
+        dtable = torch.zeros(rel_table.shape, dtype=torch.float32,
+                             device=q.device).index_add_(
+            0, idx.reshape(-1), dpe.reshape(-1, dpe.shape[-1]))
+    b, f_ = q.shape[0], q.shape[2]
+    return (dq.reshape(b, lq, f_).to(q.dtype), dk.reshape(b, lk, f_).to(q.dtype),
+            dv.reshape(b, lk, f_).to(q.dtype), dtable)
+
+
+def _check_attention(name, q, k, v, mask_add, rel_table, num_heads,
+                     max_pos):
+    """Shapes on every device; on the card also the kernels' contract.
+    Returns True for a CPU call (the plain version), False for the card."""
     b, lq, f = q.shape
     lk = k.shape[1]
-    d = f // num_heads
-    q4 = q.reshape(b, lq, num_heads, d).float()
-    k4 = k.reshape(b, lk, num_heads, d).float()
-    v4 = v.reshape(b, lk, num_heads, d).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q4, k4)
-    if rel_table is not None:
-        idx = (torch.arange(lq, device=q.device)[:, None]
-               - torch.arange(lk, device=q.device)[None, :] + max_pos - 1)
-        pe = rel_table.float()[idx]                       # (Lq, Lk, D)
-        s = s + torch.einsum("bqhd,qkd->bhqk", q4, pe)
-    s = s * (1.0 / math.sqrt(d)) + mask_add.float()[:, None, None, :]
-    s = s - s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s)
-    p = p / p.sum(dim=-1, keepdim=True)
-    p = p.to(v.dtype).float()
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v4)
-    return o.reshape(b, lq, f).to(q.dtype)
+    if k.shape != (b, lk, f) or v.shape != (b, lk, f):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if mask_add.shape != (b, lk):
+        raise ValueError(f"{name}: mask {tuple(mask_add.shape)} != {(b, lk)}")
+    if f % num_heads:
+        raise ValueError(f"{name}: {f} not divisible by {num_heads} heads")
+    if lq > max_pos or lk > max_pos:
+        raise ValueError(f"{name}: Lq={lq}, Lk={lk} exceed max_pos={max_pos}")
+    if rel_table is not None and rel_table.shape != (2 * max_pos - 1,
+                                                     f // num_heads):
+        raise ValueError(f"{name}: table {tuple(rel_table.shape)}")
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {q.device}")
+    if f // num_heads != KERNEL_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {f // num_heads}, the kernel "
+                         f"takes {KERNEL_HEAD_DIM}")
+    if lk > KERNEL_MAX_LEN or lq > KERNEL_MAX_LEN:
+        raise ValueError(f"{name}: length above {KERNEL_MAX_LEN}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+    if mask_add.dtype != torch.float32:
+        raise ValueError(f"{name}: mask must be float32")
+    if rel_table is not None and rel_table.dtype != q.dtype:
+        raise ValueError(f"{name}: table {rel_table.dtype} != {q.dtype}")
+    _check_cuda(name, q, k, v, mask_add,
+                *([rel_table] if rel_table is not None else []))
+    return False
+
+
+def _keep_bytes(name, keep, shape):
+    """The keep mask as the kernels read it: uint8 (B, H, Lq, Lk)."""
+    if keep is None:
+        return None
+    if tuple(keep.shape) != shape or keep.dtype not in (torch.bool,
+                                                        torch.uint8):
+        raise ValueError(f"{name}: keep mask {tuple(keep.shape)} "
+                         f"{keep.dtype}, expected {shape} bool or uint8")
+    return keep.contiguous().view(torch.uint8)
 
 
 def fused_attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
@@ -103,44 +262,12 @@ def fused_attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
     start at 16-byte aligned addresses (any fresh tensor does; a view at
     an odd offset raises).
     """
-    b, lq, f = q.shape
-    lk = k.shape[1]
-    if k.shape != (b, lk, f) or v.shape != (b, lk, f):
-        raise ValueError(f"fused_attention: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if mask_add.shape != (b, lk):
-        raise ValueError(f"fused_attention: mask {tuple(mask_add.shape)} "
-                         f"!= {(b, lk)}")
-    if f % num_heads:
-        raise ValueError(f"fused_attention: {f} not divisible by "
-                         f"{num_heads} heads")
-    if lq > max_pos or lk > max_pos:
-        raise ValueError(f"fused_attention: Lq={lq}, Lk={lk} exceed "
-                         f"max_pos={max_pos}")
-    if rel_table is not None and rel_table.shape != (2 * max_pos - 1,
-                                                     f // num_heads):
-        raise ValueError(f"fused_attention: table {tuple(rel_table.shape)}")
-    if q.device.type == "cpu":
+    if _check_attention("fused_attention", q, k, v, mask_add, rel_table,
+                        num_heads, max_pos):
         return attention_plain(q, k, v, mask_add, rel_table,
                                num_heads=num_heads, max_pos=max_pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention: no kernel for {q.device}")
-    if f // num_heads != KERNEL_HEAD_DIM:
-        raise ValueError(f"fused_attention: head dim {f // num_heads}, "
-                         f"the kernel takes {KERNEL_HEAD_DIM}")
-    if lk > KERNEL_MAX_LEN or lq > KERNEL_MAX_LEN:
-        raise ValueError(f"fused_attention: length above {KERNEL_MAX_LEN}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"fused_attention: dtypes {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
-    if mask_add.dtype != torch.float32:
-        raise ValueError("fused_attention: mask must be float32")
-    if rel_table is not None and rel_table.dtype != q.dtype:
-        raise ValueError(f"fused_attention: table {rel_table.dtype} != "
-                         f"{q.dtype}")
-    tensors = [q, k, v, mask_add] + ([rel_table] if rel_table is not None
-                                     else [])
-    _check_cuda("fused_attention", *tensors)
+    b, lq, _ = q.shape
+    lk = k.shape[1]
     if q.dtype == torch.bfloat16:
         _check_aligned16("fused_attention", q, k, v,
                          *([rel_table] if rel_table is not None else []))
@@ -155,6 +282,154 @@ def fused_attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
 
 
 fused_attention.launches = 0
+
+
+def fused_attention_train(q, k, v, mask_add, rel_table=None, keep=None,
+                          dropout_p: float = 0.0, *, num_heads: int,
+                          max_pos: int):
+    """The training forward of the attention core: ``fused_attention``'s
+    output with the probabilities dropped where ``keep`` (bool or uint8,
+    (B, H, Lq, Lk), or None for no dropout) is 0 and scaled by
+    1 / (1 - dropout_p) where it is not, and each query row's f32
+    log-sum-exp (B, H, Lq) for the backward."""
+    b, lq, _ = q.shape
+    lk = k.shape[1]
+    keep_u8 = _keep_bytes("fused_attention_train", keep,
+                          (b, num_heads, lq, lk))
+    if _check_attention("fused_attention_train", q, k, v, mask_add,
+                        rel_table, num_heads, max_pos):
+        return attention_train_plain(q, k, v, mask_add, rel_table, keep,
+                                     dropout_p, num_heads=num_heads,
+                                     max_pos=max_pos)
+    if keep_u8 is not None:
+        _check_cuda("fused_attention_train", q, keep_u8)
+    if q.dtype == torch.bfloat16:
+        _check_aligned16("fused_attention_train", q, k, v,
+                         *([rel_table] if rel_table is not None else []))
+    out = torch.empty_like(q)
+    lse = torch.empty((b, num_heads, lq), dtype=torch.float32,
+                      device=q.device)
+    lib = _build.load_library()
+    code = lib.e3d_attention_train(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(mask_add), _ptr(rel_table),
+        _ptr(keep_u8), _ptr(out), _ptr(lse), b, lq, lk, num_heads, max_pos,
+        drop_scale(dropout_p), _DTYPE_CODE[q.dtype], _stream())
+    _raise_on_error("fused_attention_train", code)
+    fused_attention_train.launches += 1
+    return out, lse
+
+
+fused_attention_train.launches = 0
+
+
+def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
+                       keep=None, dropout_p: float = 0.0, *, num_heads: int,
+                       max_pos: int):
+    """Gradients of ``fused_attention_train`` with respect to q, k, v (in
+    q's type) and the distance table (f32, None without a table), given
+    the output's gradient ``dout`` and the forward's row log-sum-exp. On
+    the card the table gradient is summed over (b, h) with atomics: its
+    last bits change from run to run."""
+    b, lq, _ = q.shape
+    lk = k.shape[1]
+    name = "attention_backward"
+    keep_u8 = _keep_bytes(name, keep, (b, num_heads, lq, lk))
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype} "
+                         f"against q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, num_heads, lq):
+        raise ValueError(f"{name}: lse {tuple(lse.shape)}")
+    if _check_attention(name, q, k, v, mask_add, rel_table, num_heads,
+                        max_pos):
+        return attention_backward_plain(
+            dout, q, k, v, lse, mask_add, rel_table, keep, dropout_p,
+            num_heads=num_heads, max_pos=max_pos)
+    if lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be float32")
+    _check_cuda(name, q, dout, lse,
+                *([keep_u8] if keep_u8 is not None else []))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dtable = (None if rel_table is None else
+              torch.zeros(rel_table.shape, dtype=torch.float32,
+                          device=q.device))
+    delta = torch.empty((b, num_heads, lq), dtype=torch.float32,
+                        device=q.device)
+    lib = _build.load_library()
+    code = lib.e3d_attention_backward(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(mask_add),
+        _ptr(rel_table), _ptr(keep_u8), _ptr(lse), _ptr(delta), _ptr(dq),
+        _ptr(dk), _ptr(dv), _ptr(dtable), b, lq, lk, num_heads, max_pos,
+        drop_scale(dropout_p), _DTYPE_CODE[q.dtype], _stream())
+    _raise_on_error(name, code)
+    attention_backward.launches += 1
+    return dq, dk, dv, dtable
+
+
+attention_backward.launches = 0
+
+
+class FusedAttentionFn(torch.autograd.Function):
+    """The attention core on the card, differentiable: the forward is
+    ``fused_attention_train``, the backward ``attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_add, rel_table, keep, dropout_p,
+                num_heads, max_pos):
+        out, lse = fused_attention_train(q, k, v, mask_add, rel_table, keep,
+                                         dropout_p, num_heads=num_heads,
+                                         max_pos=max_pos)
+        ctx.save_for_backward(q, k, v, lse, mask_add, rel_table, keep)
+        ctx.dropout_p, ctx.num_heads, ctx.max_pos = (dropout_p, num_heads,
+                                                      max_pos)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse, mask_add, rel_table, keep = ctx.saved_tensors
+        dq, dk, dv, dtable = attention_backward(
+            dout.contiguous(), q, k, v, lse, mask_add, rel_table, keep,
+            ctx.dropout_p, num_heads=ctx.num_heads, max_pos=ctx.max_pos)
+        if dtable is not None:
+            dtable = dtable.to(rel_table.dtype)
+        return dq, dk, dv, None, dtable, None, None, None, None
+
+
+def attention_autograd(q, k, v, mask_add, rel_table, keep, dropout_p: float,
+                       *, num_heads: int, max_pos: int):
+    """The differentiable attention core: ``FusedAttentionFn`` on the card,
+    the plain version (through autograd) on the CPU."""
+    if q.device.type == "cpu":
+        return attention_autograd_plain(q, k, v, mask_add, rel_table, keep,
+                                        dropout_p, num_heads=num_heads,
+                                        max_pos=max_pos)
+    return FusedAttentionFn.apply(q, k, v, mask_add, rel_table, keep,
+                                  dropout_p, num_heads, max_pos)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
+              max_pos: int, dropout_p: float = 0.0,
+              generator: torch.Generator | None = None):
+    """The models' attention core. With dropout_p > 0 the keep mask is
+    drawn here, ``torch.rand(B, H, Lq, Lk) >= dropout_p`` from
+    ``generator`` (on q's device), as flax's Dropout keeps a probability;
+    with dropout or an input that needs a gradient the core goes through
+    ``attention_autograd``, else through the inference kernel."""
+    if dropout_p > 0.0 or _needs_grad(q, k, v, rel_table):
+        keep = None
+        if dropout_p > 0.0:
+            b, lq, _ = q.shape
+            keep = torch.rand((b, num_heads, lq, k.shape[1]),
+                              generator=generator, device=q.device) >= dropout_p
+        return attention_autograd(q, k, v, mask_add, rel_table, keep,
+                                  dropout_p, num_heads=num_heads,
+                                  max_pos=max_pos)
+    return fused_attention(q, k, v, mask_add, rel_table, num_heads=num_heads,
+                           max_pos=max_pos)
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +489,127 @@ def fused_layernorm(x, weight=None, bias=None, residual=None, *,
 
 fused_layernorm.launches = 0
 
-KERNELS = (fused_attention, fused_layernorm)
+
+def layernorm_backward_plain(dy, x, weight=None, bias=None, residual=None, *,
+                             eps: float):
+    """Plain PyTorch version of ``layernorm_backward``: v = x [+ residual]
+    in f32, x_hat = (v - mean) rstd, g = dy [* weight];
+    dx = rstd (g - mean(g) - x_hat mean(g x_hat)) in x's type (also the
+    residual's gradient); dw = sum_rows dy x_hat, db = sum_rows dy in f32
+    (None without weight / bias)."""
+    f = x.shape[-1]
+    v = x.float().reshape(-1, f)
+    if residual is not None:
+        v = v + residual.float().reshape(-1, f)
+    mean = v.mean(dim=-1, keepdim=True)
+    var = ((v - mean) ** 2).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (v - mean) * rstd
+    d = dy.float().reshape(-1, f)
+    g = d * weight.float() if weight is not None else d
+    dx = rstd * (g - g.mean(dim=-1, keepdim=True)
+                 - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    dw = (d * xhat).sum(0) if weight is not None else None
+    db = d.sum(0) if bias is not None else None
+    return dx.reshape(x.shape).to(x.dtype), dw, db
+
+
+# blocks of the LayerNorm backward's first kernel (csrc/layernorm_backward.cu
+# runs 8 rows at a time per block): enough to fill the card twice over
+_LN_BWD_ROWS_PER_BLOCK = 8
+_LN_BWD_MAX_BLOCKS = 264
+
+
+def layernorm_backward(dy, x, weight=None, bias=None, residual=None, *,
+                       eps: float):
+    """Gradients of ``fused_layernorm``: dx in x's type (the residual's
+    gradient is the same tensor) and the f32 weight and bias gradients
+    (None for an affine-free norm)."""
+    f = x.shape[-1]
+    name = "layernorm_backward"
+    if dy.shape != x.shape or (residual is not None
+                               and residual.shape != x.shape):
+        raise ValueError(f"{name}: dy {tuple(dy.shape)}, x {tuple(x.shape)}")
+    if bias is not None and weight is None:
+        raise ValueError(f"{name}: a bias without a weight")
+    for pname, p in (("weight", weight), ("bias", bias)):
+        if p is not None and p.shape != (f,):
+            raise ValueError(f"{name}: {pname} {tuple(p.shape)}")
+    if x.device.type == "cpu":
+        return layernorm_backward_plain(dy, x, weight, bias, residual, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    if f % 32 or f > 1024:
+        raise ValueError(f"{name}: F={f}, the kernel takes multiples of 32 "
+                         "up to 1024")
+    if x.dtype not in _DTYPE_CODE or dy.dtype != x.dtype or (
+            residual is not None and residual.dtype != x.dtype):
+        raise ValueError(f"{name}: dtypes {x.dtype}, {dy.dtype}")
+    weight = None if weight is None else weight.float()
+    _check_cuda(name, *[t for t in (dy, x, residual, weight)
+                        if t is not None])
+    rows = x.numel() // f
+    nparts = min(-(-rows // _LN_BWD_ROWS_PER_BLOCK), _LN_BWD_MAX_BLOCKS)
+    dx = torch.empty_like(x)
+
+    def f32(n):
+        return torch.empty(n, dtype=torch.float32, device=x.device)
+
+    dw = db = dw_part = db_part = None
+    if weight is not None:
+        dw, dw_part = f32(f), f32((nparts, f))
+    if bias is not None:
+        db, db_part = f32(f), f32((nparts, f))
+    lib = _build.load_library()
+    code = lib.e3d_layernorm_backward(
+        _ptr(x), _ptr(residual), _ptr(weight), _ptr(dy), _ptr(dx),
+        _ptr(dw_part), _ptr(db_part), _ptr(dw), _ptr(db), rows, f,
+        float(eps), nparts, _DTYPE_CODE[x.dtype], _stream())
+    _raise_on_error(name, code)
+    layernorm_backward.launches += 1
+    return dx, dw, db
+
+
+layernorm_backward.launches = 0
+
+
+class FusedLayerNormFn(torch.autograd.Function):
+    """Residual + LayerNorm on the card, differentiable: the forward is
+    ``fused_layernorm``, the backward ``layernorm_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, eps):
+        ctx.save_for_backward(x, weight, bias, residual)
+        ctx.eps = eps
+        return fused_layernorm(x, weight, bias, residual, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, residual = ctx.saved_tensors
+        dx, dw, db = layernorm_backward(dy.contiguous(), x, weight, bias,
+                                        residual, eps=ctx.eps)
+        return dx, dw, db, (dx if residual is not None else None), None
+
+
+def layernorm_autograd(x, weight=None, bias=None, residual=None, *,
+                       eps: float):
+    """The differentiable LayerNorm: ``FusedLayerNormFn`` on the card, the
+    plain version (through autograd) on the CPU."""
+    if x.device.type == "cpu":
+        return layernorm_plain(x, weight, bias, residual, eps=eps)
+    return FusedLayerNormFn.apply(x, weight, bias, residual, eps)
+
+
+def layernorm(x, weight=None, bias=None, residual=None, *, eps: float):
+    """The models' LayerNorm: ``layernorm_autograd`` when an input needs a
+    gradient, else the inference kernel."""
+    if _needs_grad(x, weight, bias, residual):
+        return layernorm_autograd(x, weight, bias, residual, eps=eps)
+    return fused_layernorm(x, weight, bias, residual, eps=eps)
+
+
+KERNELS = (fused_attention, fused_layernorm, fused_attention_train,
+           attention_backward, layernorm_backward)
 
 
 def reset_launch_counts() -> None:

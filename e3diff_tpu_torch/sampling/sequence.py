@@ -50,6 +50,7 @@ def make_sequence_sampler(model, d3pm: D3PMDiffusion, *, diverse: bool = True,
         guided = not (np.ndim(guidance_scale) == 0
                       and float(guidance_scale) == 1.0)
 
+    @torch.no_grad()
     def run(batch, generator=None, noise=None, scale=None):
         if noise is None and generator is None:
             raise ValueError("pass a generator or injected noise")

@@ -6,11 +6,15 @@ to the Pallas bodies (f32, atol 2e-5 / rtol 1e-4 as
 tests/test_pallas_kernels.py does), check the wrappers' argument checks,
 and that a wrapper never falls back to the plain version for a tensor
 that is not on the CPU. The CUDA kernels themselves are held against the
-plain versions on the card by chip_smoke.py.
+plain versions on the card by chip_smoke.py. The training kernels' plain
+versions (the training forward, both backwards) are held to jax.vjp of
+the JAX package's training path below.
 """
 
-import numpy as np
+import flax.linen as jnn
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -193,3 +197,197 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="no kernel"):
         kernels.fused_layernorm(q, eps=1e-5)
 
+
+# ---------------------------------------------------------------------------
+# training: the training forward and both backwards against jax.vjp of the
+# JAX package's training path (its einsum attention, blocks.py:154-165, and
+# flax nn.LayerNorm), in f32: atol 2e-5 / rtol 1e-4 for outputs, 1e-4 /
+# 1e-4 for gradients (sums over up to 32 keys, 8 batch rows and 4 heads
+# taken in another order)
+# ---------------------------------------------------------------------------
+
+
+def _jax_attention(q, k, v, mask, table, keep, rate, h, max_pos):
+    """blocks.py:154-165 on flat inputs: einsum scores + relative bias,
+    / sqrt(D), + mask, softmax, flax's dropout given the keep mask."""
+    b, lq, f = q.shape
+    lk = k.shape[1]
+    d = f // h
+    q4, k4, v4 = (x.reshape(b, -1, h, d) for x in (q, k, v))
+    scores = jnp.einsum("bqhd,bkhd->bhqk", q4, k4)
+    if table is not None:
+        idx = np.arange(lq)[:, None] - np.arange(lk)[None, :] + max_pos - 1
+        scores = scores + jnp.einsum("blhd,lrd->bhlr", q4, table[idx])
+    scores = scores / np.sqrt(d) + mask[:, None, None, :]
+    probs = jax.nn.softmax(scores, axis=-1)
+    if keep is not None:
+        probs = jnp.where(keep, probs / (1.0 - rate), 0.0)
+    return jnp.einsum("bhqk,bkhd->bqhd", probs, v4).reshape(b, lq, f)
+
+
+@pytest.mark.parametrize("with_table", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_attention_training_plain_matches_jax_vjp(with_table, rate):
+    """attention_train_plain (given JAX's keep mask) and
+    attention_backward_plain against jax.vjp of the einsum attention:
+    the output, and the gradients of q, k, v and the distance table."""
+    q, k, v, mask, table = _inputs(seed=3, ragged=True)
+    rng = np.random.default_rng(4)
+    keep = rng.random((B, H, LQ, LK)) >= rate if rate else None
+    dout = rng.normal(size=q.shape).astype(np.float32)
+    tab = table if with_table else None
+
+    def f(q_, k_, v_, t_):
+        return _jax_attention(q_, k_, v_, jnp.asarray(mask), t_,
+                              None if keep is None else jnp.asarray(keep),
+                              rate, H, MAX_POS)
+
+    want, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)),
+                        None if tab is None else jnp.asarray(tab))
+    grads = vjp(jnp.asarray(dout))
+    t = torch.from_numpy
+    kw = dict(num_heads=H, max_pos=MAX_POS)
+    tkeep = None if keep is None else t(keep)
+    args = (t(q), t(k), t(v), t(mask), None if tab is None else t(tab))
+    before = kernels.fused_attention_train.launches
+    out, lse = kernels.fused_attention_train(*args, tkeep, rate, **kw)
+    assert kernels.fused_attention_train.launches == before  # CPU: plain
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=1e-4)
+    got = kernels.attention_backward(t(dout), *args[:3], lse, *args[3:],
+                                     tkeep, rate, **kw)
+    assert (got[3] is None) == (tab is None)
+    for g, w in zip(got, grads):
+        if w is not None:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                       rtol=1e-4)
+
+
+@pytest.mark.parametrize("with_table", [False, True])
+def test_attention_backward_plain_matches_the_jax_module(with_table):
+    """attention_backward_plain against jax.vjp of the JAX package's own
+    MultiHeadAttention (blocks.py:107-165) at dropout 0, its projections
+    made the identity: the query Dense takes q, and the key and value
+    Denses pick k and v out of the memory [k | v]."""
+    from e3diff_tpu.models.blocks import MultiHeadAttention
+    from e3diff_tpu.models.config import TransformerConfig
+
+    q, k, v, mask, table = _inputs(seed=7, ragged=True)
+    dout = np.random.default_rng(8).normal(size=q.shape).astype(np.float32)
+    eye, zero = np.eye(F, dtype=np.float32), np.zeros((F, F), np.float32)
+    params = {"query": {"kernel": eye, "bias": np.zeros(F, np.float32)},
+              "key": {"kernel": np.concatenate([eye, zero]),
+                      "bias": np.zeros(F, np.float32)},
+              "value": {"kernel": np.concatenate([zero, eye]),
+                        "bias": np.zeros(F, np.float32)}}
+    cfg = TransformerConfig(hidden_size=F, num_heads=H, num_layers=1,
+                            intermediate_size=F,
+                            max_position_embeddings=MAX_POS,
+                            attention_dropout=0.0)
+    mha = MultiHeadAttention(cfg, relative=with_table)
+
+    def f(x, kv, tab):
+        p = dict(params)
+        if with_table:
+            p["distance_embedding"] = {"embedding": tab}
+        return mha.apply({"params": p}, x, kv,
+                         jnp.asarray(mask)[:, None, None, :])
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(np.concatenate([k, v], -1)),
+                     jnp.asarray(table))
+    dq, dkv, dtab = vjp(jnp.asarray(dout))
+    t = torch.from_numpy
+    tab = t(table) if with_table else None
+    kw = dict(num_heads=H, max_pos=MAX_POS)
+    _, lse = kernels.attention_train_plain(t(q), t(k), t(v), t(mask), tab, **kw)
+    got = kernels.attention_backward_plain(t(dout), t(q), t(k), t(v), lse,
+                                           t(mask), tab, **kw)
+    want = (dq, dkv[..., :F], dkv[..., F:], dtab if with_table else None)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                       rtol=1e-4)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("affine", [False, True])
+def test_layernorm_backward_plain_matches_jax_vjp(residual, affine):
+    """layernorm_backward_plain against jax.vjp of flax nn.LayerNorm on
+    x (+ residual): dx (= d residual), d scale, d bias."""
+    rng = np.random.default_rng(5)
+    x, res, dy = (rng.normal(size=(3, 5, 96)).astype(np.float32)
+                  for _ in range(3))
+    scale = (1 + 0.1 * rng.normal(size=96)).astype(np.float32)
+    bias = (0.1 * rng.normal(size=96)).astype(np.float32)
+    eps = 1e-12 if affine else 1e-5
+    ln = jnn.LayerNorm(epsilon=eps, use_scale=affine, use_bias=affine)
+    variables = {"params": {"scale": jnp.asarray(scale),
+                            "bias": jnp.asarray(bias)}} if affine else {}
+
+    def f(x_, r_, variables_):
+        return ln.apply(variables_, x_ + r_ if residual else x_)
+
+    _, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(res), variables)
+    dx_j, dres_j, dvars = vjp(jnp.asarray(dy))
+    t = torch.from_numpy
+    dx, dw, db = kernels.layernorm_backward(
+        t(dy), t(x), t(scale) if affine else None,
+        t(bias) if affine else None, t(res) if residual else None, eps=eps)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_j), atol=1e-4,
+                               rtol=1e-4)
+    if residual:
+        np.testing.assert_allclose(dx.numpy(), np.asarray(dres_j), atol=1e-4,
+                                   rtol=1e-4)
+    assert (dw is None) == (db is None) == (not affine)
+    if affine:
+        np.testing.assert_allclose(dw.numpy(), np.asarray(
+            dvars["params"]["scale"]), atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(db.numpy(), np.asarray(
+            dvars["params"]["bias"]), atol=1e-4, rtol=1e-4)
+
+
+def test_autograd_paths_match_backward_plain_versions():
+    """On the CPU the models' differentiable paths are the plain versions
+    under autograd; their gradients equal the backward plain versions,
+    which the CUDA backward kernels are held to on the card."""
+    q, k, v, mask, table = _inputs(seed=6)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, table)]
+    kw = dict(num_heads=H, max_pos=MAX_POS)
+    out = kernels.attention(leaves[0], leaves[1], leaves[2],
+                            torch.from_numpy(mask), leaves[3], **kw)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    out.backward(dout)
+    want_out, lse = kernels.attention_train_plain(
+        *(x.detach() for x in leaves[:3]), torch.from_numpy(mask),
+        leaves[3].detach(), **kw)
+    torch.testing.assert_close(out.detach(), want_out, atol=0, rtol=0)
+    want = kernels.attention_backward_plain(
+        dout, *(x.detach() for x in leaves[:3]), lse,
+        torch.from_numpy(mask), leaves[3].detach(), **kw)
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w, atol=1e-5, rtol=1e-4)
+    # dropout draws its keep mask inside attention(); the same draws given
+    # to the plain version reproduce the output
+    gen = torch.Generator().manual_seed(2)
+    dropped = kernels.attention(*(x.detach() for x in leaves[:3]),
+                                torch.from_numpy(mask), leaves[3].detach(),
+                                dropout_p=0.1, generator=gen, **kw)
+    redraw = torch.rand(B, H, LQ, LK, generator=torch.Generator(
+        ).manual_seed(2)) >= 0.1
+    torch.testing.assert_close(dropped, kernels.attention_train_plain(
+        *(x.detach() for x in leaves[:3]), torch.from_numpy(mask),
+        leaves[3].detach(), redraw, 0.1, **kw)[0], atol=0, rtol=0)
+
+
+def test_training_wrappers_do_not_fall_back_off_the_cpu():
+    q = torch.empty(2, 4, F, device="meta")
+    mask = torch.empty(2, 4, device="meta")
+    lse = torch.empty(2, H, 4, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.fused_attention_train(q, q, q, mask, num_heads=H, max_pos=8)
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.attention_backward(q, q, q, q, lse, mask, num_heads=H,
+                                   max_pos=8)
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.layernorm_backward(q, q, eps=1e-5)

@@ -174,7 +174,7 @@ def test_sequence_forward_matches_jax(setup):
     t = np.array([[49.0], [3.0], [0.0]], np.float32)
     want = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(t),
                                  *_forward_args(jb))
-    got = tmodel(torch.from_numpy(t), *_forward_args(tb))
+    got = tmodel(torch.from_numpy(t), *_forward_args(tb)).detach()
     assert got.shape == (B, L_LIG, K)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
@@ -189,7 +189,7 @@ def test_sequence_forward_bf16_within_stated_tolerance(setup):
     t = np.array([[49.0], [3.0], [0.0]], np.float32)
     want = np.asarray(jax.jit(jmodel.apply)(
         {"params": params}, jnp.asarray(t), *_forward_args(jb)), np.float32)
-    got = tmodel(torch.from_numpy(t), *_forward_args(tb))
+    got = tmodel(torch.from_numpy(t), *_forward_args(tb)).detach()
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=0.1)
 
@@ -203,7 +203,7 @@ def test_storage_modes_forward_matches_jax(setup, params_dtype):
     t = np.array([[10.0], [1.0], [5.0]], np.float32)
     want = jax.jit(jmodel.apply)({"params": jp}, jnp.asarray(t),
                                  *_forward_args(jb))
-    got = tmodel(torch.from_numpy(t), *_forward_args(tb))
+    got = tmodel(torch.from_numpy(t), *_forward_args(tb)).detach()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 

@@ -179,7 +179,7 @@ def test_decode_bf16_within_stated_tolerance(setup):
         jb["receptor_attn_mask"])
     got = tmodel(torch.from_numpy(t), tb["ligand_angles"], tb["ligand_attn_mask"],
                  tb["receptor_seq"], tb["receptor_angles"],
-                 tb["receptor_attn_mask"])
+                 tb["receptor_attn_mask"]).detach()
     assert got.dtype == torch.bfloat16
     want = np.asarray(want, np.float32)
     np.testing.assert_allclose(got.float().numpy(), want, atol=0.1)
@@ -322,7 +322,7 @@ def test_storage_modes_decode_matches_jax(setup, params_dtype):
         jb["ligand_attn_mask"], jb["receptor_seq"], jb["receptor_angles"],
         jb["receptor_attn_mask"])
     got = tmodel(torch.from_numpy(t), tb["ligand_angles"], tb["ligand_attn_mask"],
-                 tb["receptor_seq"], tb["receptor_angles"], tb["receptor_attn_mask"])
+                 tb["receptor_seq"], tb["receptor_angles"], tb["receptor_attn_mask"]).detach()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
