@@ -36,8 +36,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 9. training at full width: the training forward of the attention kernel
    (dropout 0.1 and 0, with the row log-sum-exp), its backward and the
    LayerNorm backward against their plain versions (and in f32 against
-   torch.autograd) at the training shapes (B=64, 128 x 128) and the
-   sampler's, ragged and dead rows, f32 and bf16, then their times beside
+   torch.autograd) at the training shapes (B=64, 128 x 128), the
+   sampler's, Lq != Lk, lengths off the 16-row tiles, ragged and dead
+   rows, f32 and bf16, then their times beside
    the plain versions, the backward of SDPA / of F.layer_norm(x + r) and
    their bounds; for the 146M structure and the 61M sequence trainer at
    their presets (B=64, length 128, bf16 compute, f32 master weights,
@@ -582,10 +583,12 @@ def main(argv=None) -> int:
         print("cuobjdump not found: no SASS summary")
     else:
         print_sass(sass)
-        mma_fns = [fn for fn in sass if "attention_mma_kernel" in fn]
-        check(len(mma_fns) > 0 and all(
-            any(op.startswith("HMMA") for op in sass[fn]) for fn in mma_fns),
-            "the bf16 attention kernel has no HMMA instruction")
+        for kernel in ("attention_mma_kernel", "attention_bwd_mma_kernel"):
+            mma_fns = [fn for fn in sass if fn.startswith(kernel)]
+            check(len(mma_fns) > 0 and all(
+                any(op.startswith("HMMA") for op in sass[fn])
+                for fn in mma_fns),
+                f"the bf16 {kernel} has no HMMA instruction")
     _CYCLES_PER_MS = _cycles_per_ms(torch)
 
     # 3 ---------------------------------------------------------------
@@ -1202,15 +1205,21 @@ def profile_sampler(torch, model, diffusion, batch, make_structure_sampler,
           f"{100 * (1 - busy / wall_us):.1f}%")
     for dev, count, key in rows[:15]:
         print(f"  {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
-    ours = [r for r in rows
-            if re.search(r"\b(attention|layernorm)_\w+_kernel", r[2])]
+    print_port_kernels(rows)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "ddim25_int8_trace.json"))
+
+
+def print_port_kernels(rows):
+    """The port's kernels among the profiler's (device us, calls, name)
+    rows: their sum, then each one's time and time per call."""
+    ours = [r for r in rows if re.search(
+        r"\b(attention|layernorm)_\w+_kernel|column_sum_kernel", r[2])]
     print(f"  the port's kernels: {sum(r[0] for r in ours) / 1e3:.3f} ms "
           f"of device time in {sum(r[1] for r in ours)} calls")
     for dev, count, key in ours:
         print(f"  {dev / 1e3:9.3f} ms {count:7d}x  {dev / count:7.2f} us "
               f"per call  {key[:70]}")
-    out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "ddim25_int8_trace.json"))
 
 
 
@@ -1247,10 +1256,7 @@ def profile_train_steps(torch, kernels, out: Path, n_steps: int = 3):
           f"{busy / 1e3:.2f} ms, idle {100 * (1 - busy / wall_us):.1f}%")
     for dev, count, key in rows[:15]:
         print(f"  {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
-    ours = [r for r in rows if re.search(
-        r"\b(attention|layernorm)_\w+_kernel|column_sum_kernel", r[2])]
-    print(f"  the port's kernels: {sum(r[0] for r in ours) / 1e3:.3f} ms of "
-          f"device time in {sum(r[1] for r in ours)} calls")
+    print_port_kernels(rows)
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "structure_train_trace.json"))
     del trainer
@@ -1277,6 +1283,11 @@ TRAIN_ATTN_CASES = [
     AttnCase("ragged 32x16x50 +table", B, L_LIG, 50, MAX_POS, True, True),
     AttnCase("dead rows 8x16x16 +table", 8, L_LIG, L_LIG, MAX_POS, True,
              True, True),
+    # Lq != Lk with the table (the bf16 kernel's query and key passes
+    # take different warp counts), lengths off the 16-row tiles
+    AttnCase("Lq<Lk 8x16x128 +table", 8, 16, TRAIN_L, TRAIN_L, True, True),
+    AttnCase("Lq>Lk 8x128x16 +table", 8, TRAIN_L, 16, TRAIN_L, True, True),
+    AttnCase("off-tile 8x100x77 +table", 8, 100, 77, TRAIN_L, True, True),
 ]
 TRAIN_LN_ROWS = [TRAIN_B * TRAIN_L, 512]
 DROPOUT = 0.1
@@ -1677,8 +1688,9 @@ def train_grad_check(torch, kernels, build, batch, draws, kind):
     direct = grad_errors(torch, k16, p16)
     print(f"  {kind} bfloat16 gradients against the f32 plain path: kernels "
           f"median {err_k.median().item():.2e}, worst "
-          f"{err_k.max().item():.2e}; plain median "
-          f"{err_p.median().item():.2e}, worst {err_p.max().item():.2e}; "
+          f"{err_k.max().item():.2e} ({names[int(err_k.argmax())]}); plain "
+          f"median {err_p.median().item():.2e}, worst "
+          f"{err_p.max().item():.2e} ({names[int(err_p.argmax())]}); "
           f"closest to the bound: {names[worst]} (kernels "
           f"{err_k[worst].item():.2e}, plain {err_p[worst].item():.2e}); "
           f"kernels vs bf16 plain directly: median "

@@ -67,6 +67,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -80,7 +81,6 @@ constexpr int kMaxLen = 128;   // Lq, Lk <= kMaxLen
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 16;               // query rows per warp (mma M)
-constexpr int kRow = kD + 8;            // shared row stride in bf16 (144 B)
 constexpr int kMaxWarps = kMaxLen / kTile;
 
 struct Args {
@@ -96,68 +96,6 @@ struct Args {
   float* lse;
   float drop_scale;  // 1 / (1 - p)
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d += a b for one 16x8x16 tile: a row-major 16x16, b column-major 16x8
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// d += A_tile (16 x 64, fragments qa) times the 8 rows at rows[0..8) of a
-// (., 64) bf16 shared array, transposed: one 16x8 tile of A rows^T.
-__device__ __forceinline__ void mma_rows(float (&d)[4],
-                                         const uint32_t (&qa)[4][4],
-                                         const bf16* rows, int lane) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    uint32_t b[4];  // depth 32*half + 0, 8, 16, 24
-    ldsm_x4(b, rows + (lane & 7) * kRow + 8 * (lane >> 3) + 32 * half);
-    mma_bf16(d, qa[2 * half], b[0], b[1]);
-    mma_bf16(d, qa[2 * half + 1], b[2], b[3]);
-  }
-}
 
 // Shared memory of one block: Q, K, V and table rows as bf16, then the
 // f32 mask row and, with a table, each warp's 16 x rs relative-bias scratch.
@@ -355,14 +293,7 @@ attention_mma_kernel(Args a, float scale) {
         pack_bf16(lo[2] * inv[1], lo[3] * inv[1]),
         pack_bf16(hi[0] * inv[0], hi[1] * inv[0]),
         pack_bf16(hi[2] * inv[1], hi[3] * inv[1])};
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t vb[4];  // keys 16 kk + 0..15, columns 8 n + 0..15
-      ldsm_x4_trans(vb, Vs + (16 * kk + (lane & 15)) * kRow + 8 * n +
-                            8 * (lane >> 4));
-      mma_bf16(o[n], pa, vb[0], vb[1]);
-      mma_bf16(o[n + 1], pa, vb[2], vb[3]);
-    }
+    mma_depth16(o, pa, Vs + 16 * kk * kRow, lane);  // keys 16 kk + 0..15
   }
 
   // the warp's Q rows are free once qa is loaded: stage the output there

@@ -168,6 +168,9 @@ def attention_backward_plain(dout, q, k, v, lse, mask_add, rel_table=None,
     dtable[l - r + max_pos - 1] += dS q. delta equals rowsum(dO O) for the
     exact output O = (P f) V; summed from P and dP it does not carry the
     rounding of a bf16 O, as autograd's softmax gradient does not.
+    dS is rounded to q's type before the dQ, dK and table products (a
+    no-op in f32): the bf16 kernel's ``mma`` operands are bf16, and JAX's
+    bf16 autodiff of the einsum attention rounds dS too.
     Returns dq, dk, dv in q's type and the f32 table gradient (None
     without a table)."""
     lq, lk = q.shape[1], k.shape[1]
@@ -184,7 +187,7 @@ def attention_backward_plain(dout, q, k, v, lse, mask_add, rel_table=None,
     if f is not None:
         dp = dp * f
     delta = (p * dp).sum(-1, keepdim=True)                 # (B, H, Lq, 1)
-    ds = p * (dp - delta) * scale
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k4)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q4)
     dtable = None
@@ -348,6 +351,9 @@ def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
         raise ValueError(f"{name}: lse must be float32")
     _check_cuda(name, q, dout, lse,
                 *([keep_u8] if keep_u8 is not None else []))
+    if q.dtype == torch.bfloat16:
+        _check_aligned16(name, q, k, v, dout,
+                         *([rel_table] if rel_table is not None else []))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dtable = (None if rel_table is None else
               torch.zeros(rel_table.shape, dtype=torch.float32,

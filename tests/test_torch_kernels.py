@@ -391,3 +391,113 @@ def test_training_wrappers_do_not_fall_back_off_the_cpu():
                                    max_pos=8)
     with pytest.raises(ValueError, match="no kernel"):
         kernels.layernorm_backward(q, q, eps=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward: the plain version rounds dS to bf16 before the dQ, dK
+# and table products, as the tensor-core kernel does (its mma operands are
+# bf16) and as JAX's bf16 autodiff of the einsum attention does
+# ---------------------------------------------------------------------------
+
+
+def _bf16_inputs(seed, rate):
+    """bf16 q, k, v, dO and table from seeded f32 draws, the f32 mask and
+    a seeded keep mask (None at rate 0)."""
+    q, k, v, mask, table = _inputs(seed=seed, ragged=True)
+    rng = np.random.default_rng(seed + 1)
+    dout = rng.normal(size=q.shape).astype(np.float32)
+    keep = rng.random((B, H, LQ, LK)) >= rate if rate else None
+    bf = [torch.from_numpy(x).bfloat16() for x in (q, k, v, dout, table)]
+    return bf, torch.from_numpy(mask), (None if keep is None
+                                        else torch.from_numpy(keep))
+
+
+def _backward_f64(dout, q, k, v, lse, mask, table, keep, rate):
+    """The backward's formulas in float64 from the same bf16 values, P f
+    and dS rounded to bf16 where the plain version rounds them."""
+    d = lambda t: t.double()                      # noqa: E731
+    q4, k4, v4, g4 = (d(t).reshape(B, -1, H, D) for t in (q, k, v, dout))
+    idx = torch.from_numpy(np.arange(LQ)[:, None] - np.arange(LK)[None, :]
+                           + MAX_POS - 1)
+    s = torch.einsum("bqhd,bkhd->bhqk", q4, k4)
+    if table is not None:
+        s = s + torch.einsum("bqhd,qkd->bhqk", q4, d(table)[idx])
+    x = s / np.sqrt(D) + d(mask)[:, None, None, :]
+    p = torch.exp(x - d(lse)[..., None])
+    f = (torch.ones_like(p) if keep is None
+         else d(keep) * kernels.drop_scale(rate))
+    pd = (p * f).bfloat16().double()
+    dp = torch.einsum("bqhd,bkhd->bhqk", g4, v4) * f
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) / np.sqrt(D)).bfloat16().double()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k4)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q4)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd, g4)
+    dtable = None
+    if table is not None:
+        dq = dq + torch.einsum("bhqk,qkd->bqhd", ds, d(table)[idx])
+        dpe = torch.einsum("bhqk,bqhd->qkd", ds, q4)
+        dtable = torch.zeros(table.shape, dtype=torch.float64).index_add_(
+            0, idx.reshape(-1), dpe.reshape(-1, D))
+    return (dq.reshape(B, LQ, F), dk.reshape(B, LK, F), dv.reshape(B, LK, F),
+            dtable)
+
+
+@pytest.mark.parametrize("with_table", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_attention_backward_plain_bf16_matches_float64_formula(with_table,
+                                                               rate):
+    """In bf16 the plain backward is the formulas with dS rounded to bf16:
+    dQ, dK and dV (bf16) within their own rounding, 2^-8 of each value,
+    plus 1e-3 of the largest (a dS or P f value next to a rounding
+    boundary may round the other way after f32 sums); the f32 table
+    gradient within 1e-4 of its largest value. Without the rounding of
+    dS the table gradient would lie ~1e-3 away."""
+    (q, k, v, dout, table), mask, keep = _bf16_inputs(11, rate)
+    tab = table if with_table else None
+    kw = dict(num_heads=H, max_pos=MAX_POS)
+    _, lse = kernels.attention_train_plain(q, k, v, mask, tab, keep, rate,
+                                           **kw)
+    got = kernels.attention_backward(dout, q, k, v, lse, mask, tab, keep,
+                                     rate, **kw)
+    want = _backward_f64(dout, q, k, v, lse, mask, tab, keep, rate)
+    assert (got[3] is None) == (tab is None)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == torch.bfloat16
+        err = (g.double() - w).abs()
+        assert (err <= 2.0 ** -8 * w.abs() + 1e-3 * w.abs().max()).all()
+    if with_table:
+        err = (got[3].double() - want[3]).abs().max()
+        assert err <= 1e-4 * want[3].abs().max()
+
+
+@pytest.mark.parametrize("with_table", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_attention_backward_plain_bf16_near_jax_vjp(with_table, rate):
+    """The bf16 plain backward against jax.vjp's f32 gradients of the
+    einsum attention on the same bf16-rounded inputs: within 1e-2
+    relative L2 (bf16 rounding of P f, dS and the outputs, each a 2^-9
+    relative step)."""
+    (q, k, v, dout, table), mask, keep = _bf16_inputs(13, rate)
+    tab = table if with_table else None
+    f32 = lambda t: None if t is None else t.float().numpy()  # noqa: E731
+
+    def f(q_, k_, v_, t_):
+        return _jax_attention(q_, k_, v_, jnp.asarray(mask.numpy()), t_,
+                              None if keep is None else jnp.asarray(
+                                  keep.numpy()), rate, H, MAX_POS)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(f32(x)) for x in (q, k, v)),
+                     None if tab is None else jnp.asarray(f32(tab)))
+    want = vjp(jnp.asarray(f32(dout)))
+    kw = dict(num_heads=H, max_pos=MAX_POS)
+    _, lse = kernels.attention_train_plain(q, k, v, mask, tab, keep, rate,
+                                           **kw)
+    got = kernels.attention_backward(dout, q, k, v, lse, mask, tab, keep,
+                                     rate, **kw)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            w = np.asarray(w, np.float64)
+            dist = np.linalg.norm(g.double().numpy() - w) / np.linalg.norm(w)
+            assert dist <= 1e-2
