@@ -5,8 +5,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``e3diff_tpu_torch/csrc`` with
    ``nvcc`` for sm_90a, printing the build seconds, ``ptxas`` resources
-   and, where ``cuobjdump`` exists, each kernel's tensor-core (HMMA) and
-   16-byte load and store instructions in the SASS;
+   (and, for the training kernels, their registers and resident blocks per
+   SM from the occupancy API) and, where ``cuobjdump`` exists, each
+   kernel's tensor-core (HMMA) and 16-byte load and store instructions in
+   the SASS;
 3. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16, at the shapes the structure sampler gives it and at the edges
    of its contract (and the f32 attention also against a float64 softmax
@@ -33,14 +35,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    finite, ideal bond lengths) and the exact launches of both kernels in
    each stage (13 + 29 per encode and 25 + 41 per DDIM step; 15 + 32 per
    sequence forward, 50 forwards), and printing seconds per design batch;
-9. training at full width: the training forward of the attention kernel
-   (dropout 0.1 and 0, with the row log-sum-exp), its backward and the
-   LayerNorm backward against their plain versions (and in f32 against
-   torch.autograd) at the training shapes (B=64, 128 x 128), the
-   sampler's, Lq != Lk, lengths off the 16-row tiles, ragged and dead
-   rows, f32 and bf16, then their times beside
-   the plain versions, the backward of SDPA / of F.layer_norm(x + r) and
-   their bounds; for the 146M structure and the 61M sequence trainer at
+9. training at full width: the dropout bits the kernels draw from a seed
+   (Philox4x32-10, written out by ``e3d_dropout_keep``) against
+   ``dropout_keep_plain`` bit for bit, and the bits the training forward
+   and the backward apply, read back exactly; the training forward of the
+   attention kernel (dropout 0.1 from a seed, and 0, with the row
+   log-sum-exp), its backward and the LayerNorm backward against their
+   plain versions (and in f32 against torch.autograd) at the training
+   shapes (B=64, 128 x 128), the sampler's, Lq != Lk, lengths off the
+   16-row tiles, ragged and dead rows, f32 and bf16, then their times
+   beside the plain versions, the backward of SDPA / of F.layer_norm(x + r)
+   and their bounds (the forward also with its seed draw, beside the mask
+   draw it replaced; the LayerNorm backward's two kernels apart); for the
+   146M structure and the 61M sequence trainer at
    their presets (B=64, length 128, bf16 compute, f32 master weights,
    AdamW): one step's loss and gradients through the kernels against the
    plain versions at dropout 0 (f32 and bf16), 20 train steps at dropout
@@ -58,7 +65,8 @@ Usage, from the root of a checkout:
     python3 chip_smoke.py --profile DIR  # also torch.profiler breakdowns
                                          # of a DDIM run, a design batch and
                                          # 3 structure train steps (device
-                                         # busy share), traces written to DIR
+                                         # busy ms a step, the dropout draws'
+                                         # ms), traces written to DIR
 Without a CUDA card, or away from the repository, it exits non-zero and
 prints no result.
 """
@@ -67,6 +75,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
+import io
 import json
 import math
 import re
@@ -408,6 +418,56 @@ def print_sass(per: dict[str, Counter]) -> None:
               f"stores {wide_st}")
 
 
+# the kernels phase 2 summarises: the training forward at 128 keys (bf16,
+# without and with the table), its backward, the LayerNorm backward
+RESIDENCY_KERNELS = (
+    ("attention_mma_kernel<8, false, true>",
+     "attention_mma_kernelILi8ELb0ELb1E"),
+    ("attention_mma_kernel<8, true, true>",
+     "attention_mma_kernelILi8ELb1ELb1E"),
+    ("attention_bwd_mma_kernel<8, false>", "attention_bwd_mma_kernelILi8ELb0E"),
+    ("attention_bwd_mma_kernel<8, true>", "attention_bwd_mma_kernelILi8ELb1E"),
+    ("layernorm_bwd_vec_kernel<bf16, 768>",
+     "layernorm_bwd_vec_kernelI13__nv_bfloat16Li768E"),
+    ("column_sum_kernel", "column_sum_kernel"),
+)
+
+
+def ptxas_resources(log: str) -> dict[str, str]:
+    """Mangled kernel name -> ptxas's "Used N registers, ..." line."""
+    res, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "Used" in line and "registers" in line:
+            res[fn] = line.split(":", 1)[-1].strip()
+    return res
+
+
+def print_residency(torch, lib, log: str) -> None:
+    """ptxas registers of the training kernels and their resident blocks
+    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at the training
+    shape: 64x128x128 attention, 8192x768 LayerNorm backward."""
+    res = ptxas_resources(log)
+    for label, key in RESIDENCY_KERNELS:
+        used = [v for k, v in res.items() if key in k]
+        print(f"  ptxas {label}: {used[0] if used else 'not in the log'}")
+    for table in (0, 1):
+        n = ctypes.c_int(0)
+        code = lib.e3d_attention_train_occupancy(128, 128, table,
+                                                 ctypes.byref(n))
+        check(code == 0, f"occupancy query failed with cudaError {code}")
+        print(f"  training forward 128x128{' +table' if table else ''} bf16: "
+              f"{n.value} resident blocks per SM")
+    n = ctypes.c_int(0)
+    code = lib.e3d_layernorm_backward_occupancy(HIDDEN, 1, ctypes.byref(n))
+    check(code == 0, f"occupancy query failed with cudaError {code}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  layernorm backward {HIDDEN} bf16: {n.value} resident blocks per "
+          f"SM ({sms} SMs)")
+
+
 def bound(nbytes, ops, dtype_name) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
@@ -490,13 +550,21 @@ def make_batch(torch, gen):
 def plain_versions(kernels):
     """The models' kernel calls go to the plain PyTorch versions: the
     inference kernels' and, for training, the differentiable paths', which
-    autograd then differentiates."""
+    autograd then differentiates (a dropout seed becomes its keep mask,
+    ``dropout_keep_plain``)."""
+    def autograd_plain(q, k, v, mask, table, seed, p, *, num_heads, max_pos):
+        keep = None if seed is None else kernels.dropout_keep_plain(
+            seed, (q.shape[0], num_heads, q.shape[1], k.shape[1]), p)
+        return kernels.attention_autograd_plain(
+            q, k, v, mask, table, keep, p, num_heads=num_heads,
+            max_pos=max_pos)
+
     names = ("fused_attention", "fused_layernorm", "attention_autograd",
              "layernorm_autograd")
     saved = [getattr(kernels, n) for n in names]
     for n, plain in zip(names, (
             kernels.attention_plain, kernels.layernorm_plain,
-            kernels.attention_autograd_plain, kernels.layernorm_plain)):
+            autograd_plain, kernels.layernorm_plain)):
         setattr(kernels, n, plain)
     try:
         yield
@@ -573,11 +641,15 @@ def main(argv=None) -> int:
     # 2 ---------------------------------------------------------------
     phase("2. build the kernels (nvcc, sm_90a)")
     t0 = time.perf_counter()
-    lib_path = _build.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        lib_path = _build.build(verbose=True)
+    print(log.getvalue())
     kernels_lib = _build.load_library()
     check(kernels_lib is not None, "kernel library did not load")
     print(f"built {lib_path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
+    print_residency(torch, kernels_lib, log.getvalue())
     sass = sass_summary(_build._nvcc(), lib_path)
     if sass is None:
         print("cuobjdump not found: no SASS summary")
@@ -1253,10 +1325,18 @@ def profile_train_steps(torch, kernels, out: Path, n_steps: int = 3):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"  {n_steps} steps: wall {wall_us / 1e3:.2f} ms, device busy "
-          f"{busy / 1e3:.2f} ms, idle {100 * (1 - busy / wall_us):.1f}%")
+          f"{busy / 1e3:.2f} ms, idle {100 * (1 - busy / wall_us):.1f}%; per "
+          f"step device busy {busy / 1e3 / n_steps:.2f} ms")
     for dev, count, key in rows[:15]:
         print(f"  {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
     print_port_kernels(rows)
+    # random draws: the hidden Dropout modules' torch.rand (uniform) and the
+    # attention cores' seeds (torch.randint); the keep bits themselves are
+    # drawn inside the attention kernels
+    draws = [r for r in rows if re.search(r"distribution|random|uniform",
+                                          r[2], re.IGNORECASE)]
+    print(f"  dropout draws: {sum(r[0] for r in draws) / 1e3 / n_steps:.3f} "
+          f"ms a step in {sum(r[1] for r in draws) // n_steps} launches")
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "structure_train_trace.json"))
     del trainer
@@ -1288,6 +1368,9 @@ TRAIN_ATTN_CASES = [
     AttnCase("Lq<Lk 8x16x128 +table", 8, 16, TRAIN_L, TRAIN_L, True, True),
     AttnCase("Lq>Lk 8x128x16 +table", 8, TRAIN_L, 16, TRAIN_L, True, True),
     AttnCase("off-tile 8x100x77 +table", 8, 100, 77, TRAIN_L, True, True),
+    # without the table the training forward splits the queries over
+    # blocks of 64: a last block of 36 rows
+    AttnCase("off-tile 8x100x77", 8, 100, 77, TRAIN_L, False, True),
 ]
 TRAIN_LN_ROWS = [TRAIN_B * TRAIN_L, 512]
 DROPOUT = 0.1
@@ -1331,10 +1414,11 @@ def attention_train_check(torch, kernels, gen, case, dtype, p):
     dname = str(dtype).split(".")[-1]
     q, k, v, mask, tab = attention_inputs(torch, gen, case, dtype)
     kw = dict(num_heads=HEADS, max_pos=case.max_pos)
-    keep = (torch.rand((case.b, HEADS, case.lq, case.lk), generator=gen,
-                       device="cuda") >= p) if p > 0 else None
+    seed = draw_seed(torch, gen) if p > 0 else None
+    keep = None if seed is None else kernels.dropout_keep_plain(
+        seed, (case.b, HEADS, case.lq, case.lk), p)
     tag = f"{case.label} {dname} p={p}"
-    out, lse = kernels.fused_attention_train(q, k, v, mask, tab, keep, p,
+    out, lse = kernels.fused_attention_train(q, k, v, mask, tab, seed, p,
                                              **kw)
     want_out, want_lse = kernels.attention_train_plain(q, k, v, mask, tab,
                                                        keep, p, **kw)
@@ -1345,7 +1429,7 @@ def attention_train_check(torch, kernels, gen, case, dtype, p):
     compare(f"attention train lse {tag}", lse, want_lse, *LSE_TOL)
     dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     got = kernels.attention_backward(dout, q, k, v, lse, mask, tab,
-                                     keep, p, **kw)
+                                     seed, p, **kw)
     want = kernels.attention_backward_plain(dout, q, k, v, lse, mask,
                                             tab, keep, p, **kw)
     torch.cuda.synchronize()
@@ -1373,6 +1457,95 @@ def attention_train_check(torch, kernels, gen, case, dtype, p):
                 compare_rel(f"attention bwd {name} {tag} vs autograd", g, w,
                             BWD_DEAD_REL if case.dead else BWD_REL[dname])
     return out_err, errs["dq"]
+
+
+def draw_seed(torch, gen):
+    """A dropout seed as kernels.attention draws it: 2 int64 on the card."""
+    return torch.randint(0, 2 ** 32, (2,), dtype=torch.int64, generator=gen,
+                         device="cuda")
+
+
+def dropout_bits_check(torch, kernels, gen, case, dtype, p=DROPOUT):
+    """Every keep bit the training forward and the backward draw, against
+    dropout_keep_plain of the same seed, exactly: with q = k = 0 (and the
+    table) every score is equal, P = 1/Lk, and V one-hot, V[r, d] =
+    (1 + [r >= 64]) [r mod 64 = d], so the forward's output is
+    P f (keep[l, d] + 2 keep[l, d + 64]); with dO one-hot the same way the
+    backward's dV is P f (keep[d, r] + 2 keep[d + 64, r]). A single bit
+    drawn differently changes one output by P f."""
+    dname = str(dtype).split(".")[-1]
+    b, lq, lk = case.b, case.lq, case.lk
+    kw = dict(num_heads=HEADS, max_pos=case.max_pos)
+
+    def onehot(n):
+        r = torch.arange(n, device="cuda")[:, None]
+        x = ((r % HEAD_DIM) == torch.arange(HEAD_DIM, device="cuda")[None, :])
+        x = x.float() * (1.0 + (r >= HEAD_DIM).float())
+        return x.repeat(1, HEADS)[None].expand(b, n, HIDDEN).contiguous().to(
+            dtype)
+
+    def code(keep, n):   # (b, H, rows, n) keep bits -> (b, H, rows, 64)
+        c = keep[..., :min(n, HEAD_DIM)].long()
+        c = torch.nn.functional.pad(c, (0, HEAD_DIM - c.shape[-1]))
+        if n > HEAD_DIM:
+            c[..., :n - HEAD_DIM] += 2 * keep[..., HEAD_DIM:].long()
+        return c
+
+    q = torch.zeros(b, lq, HIDDEN, device="cuda", dtype=dtype)
+    k = torch.zeros(b, lk, HIDDEN, device="cuda", dtype=dtype)
+    mask = torch.zeros(b, lk, device="cuda")
+    tab = (torch.randn(2 * case.max_pos - 1, HEAD_DIM, generator=gen,
+                       device="cuda").to(dtype) if case.table else None)
+    seed = draw_seed(torch, gen)
+    keep = kernels.dropout_keep_plain(seed, (b, HEADS, lq, lk), p)
+    pf = torch.tensor(kernels.drop_scale(p) / lk).to(dtype).float()
+    out, lse = kernels.fused_attention_train(q, k, onehot(lk), mask, tab,
+                                             seed, p, **kw)
+    got = torch.round(out.float().view(b, lq, HEADS, HEAD_DIM) / pf).long()
+    fwd_ok = torch.equal(got.transpose(1, 2), code(keep, lk))
+    _, _, dv, _ = kernels.attention_backward(onehot(lq), q, k, k, lse, mask,
+                                             tab, seed, p, **kw)
+    got = torch.round(dv.float().view(b, lk, HEADS, HEAD_DIM) / pf).long()
+    bwd_ok = torch.equal(got.transpose(1, 2),
+                         code(keep.transpose(2, 3), lq))
+    print(f"  dropout bits {case.label} {dname}: forward "
+          f"{'exact' if fwd_ok else 'DIFFER'}, backward "
+          f"{'exact' if bwd_ok else 'DIFFER'} against dropout_keep_plain",
+          flush=True)
+    check(fwd_ok and bwd_ok, f"dropout bits {case.label} {dname} differ")
+
+
+# (B, H, Lq, Lk) of the card's keep bits against the plain version: the
+# training shape, an odd one (the per-element path) and a single element
+KEEP_SHAPES = [(TRAIN_B, HEADS, TRAIN_L, TRAIN_L), (8, HEADS, 100, 77),
+               (1, 1, 1, 1)]
+
+
+def dropout_keep_check(torch, kernels, gen, p=DROPOUT):
+    """e3d_dropout_keep (the bits the tensor-core kernels draw, written
+    out) against dropout_keep_plain, bit for bit, and the kept share of
+    the largest shape within 5 sigma of 1 - p."""
+    lib = kernels._build.load_library()
+    for shape in KEEP_SHAPES:
+        seed = draw_seed(torch, gen)
+        got = torch.empty(shape, dtype=torch.uint8, device="cuda")
+        code = lib.e3d_dropout_keep(
+            ctypes.c_void_p(seed.data_ptr()), *shape,
+            kernels.dropout_threshold(p), ctypes.c_void_p(got.data_ptr()),
+            kernels._stream())
+        check(code == 0, f"e3d_dropout_keep failed with cudaError {code}")
+        want = kernels.dropout_keep_plain(seed, shape, p)
+        same = torch.equal(got.bool(), want)
+        n = math.prod(shape)
+        rate = got.float().mean().item()
+        sigma = math.sqrt(p * (1 - p) / n)
+        print(f"  dropout keep {shape}: {'equal' if same else 'DIFFER'} to "
+              f"dropout_keep_plain, kept {rate:.6f} (1 - p = {1 - p:g}, "
+              f"{abs(rate - (1 - p)) / sigma:.2f} sigma)", flush=True)
+        check(same, f"dropout keep bits {shape} differ")
+        if n >= 1_000_000:
+            check(abs(rate - (1 - p)) <= 5 * sigma,
+                  f"dropout keep rate {rate} beyond 5 sigma of {1 - p}")
 
 
 def layernorm_train_check(torch, kernels, gen, rows, dtype, residual,
@@ -1410,8 +1583,11 @@ def training_kernel_checks(torch, kernels, gen) -> dict:
     at the training and sampler shapes, f32 and bf16, dropout 0.1 and 0.
     Returns the bf16 errors of the timed shapes, for the JSON record."""
     errs = {}
+    dropout_keep_check(torch, kernels, gen)
     for dtype in (torch.float32, torch.bfloat16):
         for case in TRAIN_ATTN_CASES:
+            if not case.dead:
+                dropout_bits_check(torch, kernels, gen, case, dtype)
             for p in (DROPOUT, 0.0):
                 out_err, dq_err = attention_train_check(torch, kernels, gen,
                                                         case, dtype, p)
@@ -1431,23 +1607,24 @@ def training_kernel_checks(torch, kernels, gen) -> dict:
 def attention_train_cost(b, lq, lk, with_table, elem, backward):
     """Bytes (each input read once, each output written once) and
     operations (2 per multiply-add) of the training forward or of the
-    backward. Forward: q, k, v, the mask, the table window and the keep
-    mask read, the output and the lse written; QK^T, the bias and P V.
-    Backward: q, k, v, dO, the mask, the keep mask, the lse and the
-    table window read, dQ, dK, dV and the f32 table window written; the
+    backward. Forward: q, k, v, the mask, the table window and the 16-byte
+    seed read, the output and the lse written; QK^T, the bias and P V.
+    Backward: q, k, v, dO, the mask, the seed, the lse and the table
+    window read, dQ, dK, dV and the f32 table window written; the
     recomputed scores and bias, dP, dV, dQ, dK, and with a table dQ's
-    table term and the table gradient."""
+    table term and the table gradient. The dropout bits are drawn in the
+    kernels (no mask is read); their integer work is not counted."""
     window = (lq + lk - 1) * HEAD_DIM if with_table else 0
-    keep = b * HEADS * lq * lk
+    seed = 16
     lse = 4 * b * HEADS * lq
     mask = 4 * b * lk
     q_bytes, kv_bytes = elem * b * lq * HIDDEN, elem * b * lk * HIDDEN
     product = 2 * b * HEADS * lq * lk * HEAD_DIM
     if not backward:
-        nbytes = (2 * q_bytes + 2 * kv_bytes + elem * window + mask + keep
+        nbytes = (2 * q_bytes + 2 * kv_bytes + elem * window + mask + seed
                   + lse)
         return nbytes, product * (3 if with_table else 2)
-    nbytes = (3 * q_bytes + 4 * kv_bytes + mask + keep + lse
+    nbytes = (3 * q_bytes + 4 * kv_bytes + mask + seed + lse
               + (elem + 4) * window)
     return nbytes, product * (8 if with_table else 5)
 
@@ -1464,15 +1641,20 @@ def time_training_kernels(torch, kernels, gen, errs) -> list[dict]:
     """Phase 9.2: the three training kernels' device time at the training
     shapes (bf16, dropout 0.1) beside their plain versions, a PyTorch
     yardstick (SDPA with the bias as a float mask, its forward and its
-    backward; the backward of F.layer_norm(x + r)) and the bound."""
+    backward; the backward of F.layer_norm(x + r)) and the bound. The
+    forward is also timed as the model pays for it, the seed draw and the
+    kernel, beside ``torch.rand(B, H, Lq, Lk) >= p``, the mask draw the
+    seed replaced; the LayerNorm backward's two kernels are split by the
+    profiler."""
     record = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for case in TRAIN_ATTN_CASES[:2]:
         q, k, v, mask, tab = attention_inputs(torch, gen, case,
                                               torch.bfloat16)
         kw = dict(num_heads=HEADS, max_pos=case.max_pos)
-        keep = torch.rand((case.b, HEADS, case.lq, case.lk), generator=gen,
-                          device="cuda") >= DROPOUT
+        seed = draw_seed(torch, gen)
+        keep = kernels.dropout_keep_plain(
+            seed, (case.b, HEADS, case.lq, case.lk), DROPOUT)
         q4, k4, v4 = (t.view(case.b, -1, HEADS, HEAD_DIM).transpose(1, 2)
                       .detach().requires_grad_() for t in (q, k, v))
         bias = mask[:, None, None, :]
@@ -1484,16 +1666,21 @@ def time_training_kernels(torch, kernels, gen, errs) -> list[dict]:
                 "bhqd,qkd->bhqk", q4.detach().float(),
                 tab.float()[idx]) / math.sqrt(HEAD_DIM)
         bias = bias.to(torch.bfloat16)
-        out, lse = kernels.fused_attention_train(q, k, v, mask, tab, keep,
+        out, lse = kernels.fused_attention_train(q, k, v, mask, tab, seed,
                                                  DROPOUT, **kw)
         dout = torch.randn(out.shape, generator=gen, device="cuda").to(
             torch.bfloat16)
         fwd = (lambda: kernels.fused_attention_train(
-            q, k, v, mask, tab, keep, DROPOUT, **kw))
+            q, k, v, mask, tab, seed, DROPOUT, **kw))
+        fwd_call = (lambda: kernels.fused_attention_train(
+            q, k, v, mask, tab, draw_seed(torch, gen), DROPOUT, **kw))
+        mask_draw = (lambda: torch.rand(
+            (case.b, HEADS, case.lq, case.lk), generator=gen,
+            device="cuda") >= DROPOUT)
         fwd_plain = (lambda: kernels.attention_train_plain(
             q, k, v, mask, tab, keep, DROPOUT, **kw))
         bwd = (lambda: kernels.attention_backward(
-            dout, q, k, v, lse, mask, tab, keep, DROPOUT, **kw))
+            dout, q, k, v, lse, mask, tab, seed, DROPOUT, **kw))
         bwd_plain = (lambda: kernels.attention_backward_plain(
             dout, q, k, v, lse, mask, tab, keep, DROPOUT, **kw))
         lib_out = sdpa(q4, k4, v4, attn_mask=bias, dropout_p=DROPOUT)
@@ -1511,12 +1698,22 @@ def time_training_kernels(torch, kernels, gen, errs) -> list[dict]:
             nbytes, ops = attention_train_cost(case.b, case.lq, case.lk,
                                                case.table, 2, backward)
             b_ms, b_by = bound(nbytes, ops, "bfloat16")
-            print(f"  {name} {case.label}: kernel {ms * 1e3:.1f} us (host "
+            extra = {}
+            if not backward:
+                extra["call_ms"], _ = time_call(torch, fwd_call, iters=20)
+                extra["mask_draw_ms"], _ = time_call(torch, mask_draw,
+                                                     iters=20)
+            print(f"  {name} {case.label}: kernel {ms * 1e3:.2f} us (host "
                   f"{host * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, "
                   f"sdpa {'backward' if backward else 'forward'} "
-                  f"{lib_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us by "
-                  f"{b_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop)",
-                  flush=True)
+                  f"{lib_ms * 1e3:.2f} us ({ms / lib_ms:.2f}x), bound "
+                  f"{b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.2f} Gop)", flush=True)
+            if not backward:
+                print(f"  {name} {case.label} as the model calls it (seed "
+                      f"draw + kernel): {extra['call_ms'] * 1e3:.2f} us; the "
+                      f"keep-mask draw it replaced, torch.rand >= p: "
+                      f"{extra['mask_draw_ms'] * 1e3:.2f} us", flush=True)
             record.append(dict(
                 name=name, route="cuda",
                 source=("e3diff_tpu_torch/csrc/attention_backward.cu"
@@ -1524,7 +1721,8 @@ def time_training_kernels(torch, kernels, gen, errs) -> list[dict]:
                 replaces="e3diff_tpu/ops/pallas_kernels.py:110",
                 launches=0, max_abs_err=errs[name, case.label], ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, shape=f"{case.label} bf16 p={DROPOUT}"))
+                library_ms=lib_ms, shape=f"{case.label} bf16 p={DROPOUT}",
+                **extra))
     for rows in TRAIN_LN_ROWS[:1]:
         x, w, b, res, eps = ln_inputs(torch, gen, rows, HIDDEN,
                                       torch.bfloat16, True, True)
@@ -1542,11 +1740,15 @@ def time_training_kernels(torch, kernels, gen, errs) -> list[dict]:
         nbytes, ops = layernorm_bwd_cost(rows, True, True, 2)
         b_ms, b_by = bound(nbytes, ops, "bfloat16")
         label = f"{rows}x{HIDDEN} +residual +affine"
-        print(f"  layernorm_backward {label}: kernel {ms * 1e3:.1f} us (host "
-              f"{host * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, "
-              f"F.layer_norm(x + r) backward {lib_ms * 1e3:.1f} us, bound "
-              f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB)",
-              flush=True)
+        print(f"  layernorm_backward {label}: whole call {ms * 1e3:.2f} us "
+              f"(host {host * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, "
+              f"F.layer_norm(x + r) backward {lib_ms * 1e3:.2f} us "
+              f"({ms / lib_ms:.2f}x), bound {b_ms * 1e3:.2f} us by {b_by} "
+              f"({nbytes / 1e6:.1f} MB)", flush=True)
+        split = kernel_split(torch, lambda: kernels.layernorm_backward(
+            dy, x, w, b, res, eps=eps), n=50)
+        for key, us in split.items():
+            print(f"    {key}: {us:.2f} us a call (profiler)", flush=True)
         record.append(dict(
             name="layernorm_backward", route="cuda",
             source="e3diff_tpu_torch/csrc/layernorm_backward.cu",
@@ -1589,6 +1791,30 @@ TRAIN_WARMUP = 2            # steps left out of the step-time median
 TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 F32_GRAD_TOL = 1e-3
 BF16_GRAD_FACTOR, BF16_GRAD_SLACK = 2.0, 1e-3
+
+
+def kernel_split(torch, fn, n: int) -> dict[str, float]:
+    """Device us per call of each kernel that ``fn`` launches, from
+    torch.profiler over n calls (after warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {kernel_name_of(e.key): getattr(e, "device_time_total", 0) / n
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernel_name_of(key: str) -> str:
+    """A profiler key cut to its kernel's identifier and template
+    arguments."""
+    m = re.search(r"(\w+_kernel(<[^()]*>)?)", key)
+    return m.group(1) if m else key[:70]
 
 
 def train_batch(torch, cfg, gen, kind):

@@ -15,13 +15,14 @@ import argparse
 import dataclasses
 import os
 import pickle
+import sys
 
 import numpy as np
 
 from e3diff_tpu_torch.cli.sample_sequence import (
     add_common_flags,
     load_test_data,
-    model_config,
+    sampling_config,
 )
 
 
@@ -30,10 +31,15 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--structure_ckpt", default=None,
                    help="reference-layout structure .pt state_dict; random "
-                        "weights from --seed when absent")
+                        "weights from --seed when absent. Its config.json "
+                        "sidecar sets the width, data and diffusion flags "
+                        "not given here")
     p.add_argument("--sequence_ckpt", default=None,
                    help="reference-layout PeptideDiff .pt state_dict; "
-                        "random weights from --seed when absent")
+                        "random weights from --seed when absent. Its "
+                        "sidecar sets --sequence_timesteps and "
+                        "--sequence_layers when not given, and must agree "
+                        "with the structure one on the shared fields")
     p.add_argument("--outdir", default="./data/pipeline")
     p.add_argument("--sampler", choices=["ddpm", "ddim"], default="ddpm",
                    help="structure sampler: ddpm = the faithful T-step "
@@ -52,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     if not args.synthetic and not args.data_file:
         raise SystemExit("--data_file is required unless --synthetic")
 
@@ -64,21 +71,42 @@ def main(argv=None) -> dict:
         load_sequence_checkpoint,
         load_structure_checkpoint,
     )
-    from e3diff_tpu_torch.utils.presets import transformer_configs
+    from e3diff_tpu_torch.utils.presets import (
+        _flag_on_command_line,
+        _parser_flag_names,
+        check_shared_fields,
+        load_ckpt_config,
+        transformer_configs,
+    )
+
+    # the shared and structure fields follow the structure checkpoint's
+    # sidecar, the sequence model's depth and timesteps its own
+    cfg = sampling_config(args, parser, args.structure_ckpt, argv)
+    qside = (load_ckpt_config(args.sequence_ckpt) or {}
+             if args.sequence_ckpt else {})
+    known = _parser_flag_names(parser)
+    given = sys.argv[1:] if argv is None else argv
+    for flag, field in (("sequence_timesteps", "timesteps"),
+                        ("sequence_layers", "num_hidden_layers")):
+        if field in qside and not _flag_on_command_line(flag, given, known):
+            setattr(args, flag, qside[field])
+    try:
+        check_shared_fields(cfg, qside)
+    except ValueError as e:
+        parser.error(f"{e}: retrain, or pass the flags explicitly")
 
     device = resolve_device(args.device)
-    test_ds = load_test_data(args)
-    cfg = model_config(args)
+    test_ds = load_test_data(args, cfg)
     qcfg = dataclasses.replace(cfg, timesteps=args.sequence_timesteps,
                                num_hidden_layers=args.sequence_layers)
     smodel = StructureDenoiser(
         *transformer_configs(cfg, "torch_default"), device=device,
-        seed=None if args.structure_ckpt else args.seed)
+        seed=None if args.structure_ckpt else cfg.seed)
     if args.structure_ckpt:
         load_structure_checkpoint(args.structure_ckpt, smodel)
     qmodel = SequenceDenoiser(
         *transformer_configs(qcfg, "xavier_all"), device=device,
-        seed=None if args.sequence_ckpt else args.seed + 1)
+        seed=None if args.sequence_ckpt else cfg.seed + 1)
     if args.sequence_ckpt:
         load_sequence_checkpoint(args.sequence_ckpt, qmodel,
                                  args.sequence_timesteps)
@@ -86,8 +114,8 @@ def main(argv=None) -> dict:
         cast_inference_params(m, args.params_dtype)
 
     results = run_pipeline(
-        smodel, qmodel, test_ds, device=device, seed=args.seed,
-        batch_size=args.batch_size, structure_timesteps=args.timesteps,
+        smodel, qmodel, test_ds, device=device, seed=cfg.seed,
+        batch_size=cfg.batch_size, structure_timesteps=cfg.timesteps,
         sequence_timesteps=args.sequence_timesteps, sampler=args.sampler,
         ddim_steps=args.ddim_steps, ddim_eta=args.ddim_eta,
         guidance_scale=args.guidance_scale,

@@ -20,8 +20,10 @@ import numpy as np
 
 def add_common_flags(p: argparse.ArgumentParser, *, max_seq_len: int,
                     timesteps: int, num_hidden_layers: int) -> None:
-    """The flags both sampling CLIs take: data, model widths, storage,
-    device and seed."""
+    """The flags the sampling CLIs take: data, model widths, storage,
+    device and seed. A checkpoint's config.json sidecar overrides the
+    data, width and diffusion flags that are not on the command line
+    (``sampling_config``)."""
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--max_seq_len", type=int, default=max_seq_len)
     p.add_argument("--ligand_max_len", type=int, default=None)
@@ -31,6 +33,8 @@ def add_common_flags(p: argparse.ArgumentParser, *, max_seq_len: int,
     p.add_argument("--num_heads", type=int, default=12)
     p.add_argument("--num_hidden_layers", type=int, default=num_hidden_layers)
     p.add_argument("--intermediate_size", type=int, default=1024)
+    p.add_argument("--position_embedding_type", default="relative_key",
+                   choices=["relative_key", "absolute"])
     p.add_argument("--bf16", type=int, choices=[0, 1], default=1,
                    help="bf16 compute (1) or f32 (0)")
     p.add_argument("--params_dtype", default="f32",
@@ -43,8 +47,9 @@ def add_common_flags(p: argparse.ArgumentParser, *, max_seq_len: int,
                    help="complex file (.pt or .pkl); optional with --synthetic")
 
 
-def load_test_data(args):
-    """The test split of --data_file or of the synthetic complexes."""
+def load_test_data(args, cfg):
+    """The test split of --data_file or of the synthetic complexes, at
+    cfg's data shapes."""
     from e3diff_tpu_torch.data import (
         LigandBindingSiteData,
         load_complexes,
@@ -53,21 +58,28 @@ def load_test_data(args):
 
     complexes = (synthetic_complexes(n=32) if args.synthetic
                  else load_complexes(args.data_file))
-    test_ds = LigandBindingSiteData(complexes, "test", args.max_seq_len,
-                                    args.pocket_ext, args.ligand_max_len)
+    test_ds = LigandBindingSiteData(complexes, "test", cfg.max_seq_len,
+                                    cfg.pocket_ext, cfg.ligand_max_len)
     print(f"test={len(test_ds)} complexes")
     return test_ds
 
 
-def model_config(args):
-    """The flags' ExperimentConfig."""
-    from e3diff_tpu_torch.utils.presets import ExperimentConfig
+def sampling_config(args, parser, ckpt_path, argv):
+    """The flags' ExperimentConfig, with the fields of ``ckpt_path``'s
+    config.json sidecar adopted where their flag is not in ``argv``
+    (``adopt_ckpt_config``, as the JAX package's sampling scripts do)."""
+    from e3diff_tpu_torch.utils.presets import (
+        ExperimentConfig,
+        adopt_ckpt_config,
+    )
 
     fields = ("pocket_ext", "max_seq_len", "ligand_max_len", "timesteps",
               "num_heads", "hidden_size", "num_hidden_layers",
-              "intermediate_size")
-    return ExperimentConfig(**{k: getattr(args, k) for k in fields},
-                            bf16=bool(args.bf16))
+              "intermediate_size", "position_embedding_type", "batch_size",
+              "seed")
+    cfg = ExperimentConfig(**{k: getattr(args, k) for k in fields},
+                           bf16=bool(args.bf16))
+    return adopt_ckpt_config(cfg, parser, ckpt_path, argv=argv)[0]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     if not args.synthetic and not args.data_file:
         raise SystemExit("--data_file is required unless --synthetic")
 
@@ -111,22 +124,22 @@ def main(argv=None) -> dict:
     from e3diff_tpu_torch.utils.presets import transformer_configs
 
     device = resolve_device(args.device)
-    test_ds = load_test_data(args)
-    cfg = model_config(args)
+    cfg = sampling_config(args, parser, args.ckpt, argv)
+    test_ds = load_test_data(args, cfg)
     model = SequenceDenoiser(*transformer_configs(cfg, "xavier_all"),
                              device=device,
-                             seed=None if args.ckpt else args.seed)
+                             seed=None if args.ckpt else cfg.seed)
     if args.ckpt:
-        load_sequence_checkpoint(args.ckpt, model, args.timesteps)
+        load_sequence_checkpoint(args.ckpt, model, cfg.timesteps)
     cast_inference_params(model, args.params_dtype)
     trans = (BlosumTransition(device=device) if args.transition == "blosum"
              else UniformTransition(20))
-    d3pm = D3PMDiffusion.create(trans, timesteps=args.timesteps,
+    d3pm = D3PMDiffusion.create(trans, timesteps=cfg.timesteps,
                                 device=device)
 
     results = sample_sequence_batches(
-        model, d3pm, test_ds.batches(args.batch_size), device=device,
-        seed=args.seed, diverse=not args.greedy, n_steps=args.skip_steps,
+        model, d3pm, test_ds.batches(cfg.batch_size), device=device,
+        seed=cfg.seed, diverse=not args.greedy, n_steps=args.skip_steps,
         guidance_scale=args.guidance_scale)
     print(f"mean recovery rate: {np.mean(results['recovery_rate']):.4f}")
 

@@ -56,18 +56,35 @@
 // Training variant (template flag kTrain of both kernels, entry
 // e3d_attention_train): the same kernels, and in addition they write each
 // query row's log-sum-exp of the scaled, masked scores (f32, (B, H, Lq)) for
-// the backward (attention_backward.cu), and, given a keep mask (uint8,
-// (B, H, Lq, Lk)), multiply the f32 softmax P by keep / (1 - p) before P V,
-// as flax's Dropout does to the probabilities (e3diff_tpu/models/
-// blocks.py:162). The mask is drawn by the caller, so the kernel and its
-// plain version see the same bits. The inference entry e3d_attention
-// launches the kTrain = false instances, unchanged.
+// the backward (attention_backward.cu), and, given a seed (a 2-element int64
+// device tensor, or null for no dropout), multiply the f32 softmax P by
+// keep / (1 - p) before P V, as flax's Dropout does to the probabilities
+// (e3diff_tpu/models/blocks.py:162). The keep bits are drawn in the kernel
+// with Philox4x32-10 (philox.cuh: one mapping for the forward, the backward
+// and the plain version), so no (B, H, Lq, Lk) mask is written, read or
+// kept for the backward. The inference entry e3d_attention launches the
+// kTrain = false instances, unchanged.
+//
+// What bounds the training forward. At B=64, Lq=Lk=128, H=12 it moves
+// q, k, v, the output, the mask and the table window (50.8 MB, 15.2 us at
+// 3.35 TB/s) for 3.8 Gop on the tensor cores (4 us), and draws one Philox
+// call per eight probabilities (1.6 M calls of ~100 integer instructions).
+// The bf16 instances hide the draws behind the staging copies: each lane
+// draws the keep bits of its score fragments (64 bits for 128 keys,
+// philox.cuh::keep_frags) after issuing its cp.async copies and before
+// waiting for them. Without the table the query rows split over blocks of
+// 64 (grid (Lq / 64, H, B), so the blocks of one (b, h), which read the
+// same K and V, run together): 47 KB of shared memory and 156 registers a
+// thread let three blocks share an SM, so one block's staging overlaps
+// another's products. With the table a block keeps all 128 rows (168 KB,
+// one block per SM), which measured faster than two blocks of 64 rows.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -82,6 +99,12 @@ constexpr int kMaxLen = 128;   // Lq, Lk <= kMaxLen
 
 constexpr int kTile = 16;               // query rows per warp (mma M)
 constexpr int kMaxWarps = kMaxLen / kTile;
+// query rows per training block: 64 without the table (three blocks share
+// an SM), all 128 with it (one block of 8 warps per SM measured faster on
+// the H100 than two 64-row blocks, which stage the table window twice)
+__host__ __device__ constexpr int train_rows(bool table) {
+  return table ? 128 : 64;
+}
 
 struct Args {
   const bf16* q;
@@ -91,11 +114,19 @@ struct Args {
   const bf16* table;
   bf16* out;
   int B, Lq, Lk, H, max_pos;
-  // training only: keep mask (or null: no dropout), row log-sum-exp out
-  const uint8_t* keep;
+  // training only: dropout seed (or null: no dropout), row log-sum-exp out
+  const int64_t* seed;
   float* lse;
-  float drop_scale;  // 1 / (1 - p)
+  uint32_t threshold;  // keep iff the 16-bit Philox draw >= threshold
+  float drop_scale;    // 1 / (1 - p)
 };
+
+// query rows a block covers: all of them, or train_rows for training
+template <bool kTrain, bool kTable>
+__host__ __device__ inline int block_rows(int Lq) {
+  const int lq_pad = (Lq + kTile - 1) / kTile * kTile;
+  return kTrain && lq_pad > train_rows(kTable) ? train_rows(kTable) : lq_pad;
+}
 
 // Shared memory of one block: Q, K, V and table rows as bf16, then the
 // f32 mask row and, with a table, each warp's 16 x rs relative-bias scratch.
@@ -120,11 +151,19 @@ struct Layout {
 };
 
 template <int NK, bool kTable, bool kTrain>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kTrain ? train_rows(kTable) / kTile * 32
+                                         : kMaxWarps * 32)
 attention_mma_kernel(Args a, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Lq = a.Lq, Lk = a.Lk;
-  const Layout lay(Lq, Lk, kTable);
+  // grid (H, B) at inference; (query blocks, H, B) in training, so that
+  // the blocks of one (b, h), which read the same K and V, run together
+  const int h = kTrain ? blockIdx.y : blockIdx.x;
+  const int b = kTrain ? blockIdx.z : blockIdx.y;
+  // the block's queries: q0 .. q0 + nq - 1 (all of them at inference)
+  const int q0 = kTrain ? blockIdx.x * train_rows(kTable) : 0;
+  const int nq = kTrain ? min(train_rows(kTable), Lq - q0) : Lq;
+  const Layout lay(block_rows<kTrain, kTable>(Lq), Lk, kTable);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + lay.lq_pad * kRow;
   bf16* Vs = Ks + lay.lk_pad * kRow;
@@ -132,15 +171,14 @@ attention_mma_kernel(Args a, float scale) {
   float* Ms = reinterpret_cast<float*>(Qs + lay.bf16_elems());
   float* Rs = Ms + lay.lk_pad;
 
-  const int h = blockIdx.x, b = blockIdx.y;
   const int F = a.H * kD;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const bf16* qg = a.q + static_cast<size_t>(b) * Lq * F + h * kD;
+  const bf16* qg = a.q + (static_cast<size_t>(b) * Lq + q0) * F + h * kD;
   const bf16* kg = a.k + static_cast<size_t>(b) * Lk * F + h * kD;
   const bf16* vg = a.v + static_cast<size_t>(b) * Lk * F + h * kD;
 
   // stage: 16-byte chunks, 8 per 64-wide row, every copy in flight at once
-  for (int c = tid; c < Lq * 8; c += nthr) {
+  for (int c = tid; c < nq * 8; c += nthr) {
     const int r = c >> 3, col = (c & 7) * 8;
     cp_async16(Qs + r * kRow + col, qg + static_cast<size_t>(r) * F + col);
   }
@@ -152,10 +190,11 @@ attention_mma_kernel(Args a, float scale) {
   }
   const uint4 zero = make_uint4(0, 0, 0, 0);
   if (kTable) {
-    // offsets l - r + max_pos - 1 span [max_pos - Lk, max_pos + Lq - 2];
-    // Es[l - r + Lk - 1] holds table row l - r + max_pos - 1
-    const bf16* eg = a.table + static_cast<size_t>(a.max_pos - Lk) * kD;
-    const int e_valid = Lq + Lk - 1;
+    // the block's offsets l - r + max_pos - 1 span [max_pos - Lk + q0,
+    // max_pos + q0 + nq - 2]; Es[l - q0 - r + Lk - 1] holds table row
+    // l - r + max_pos - 1
+    const bf16* eg = a.table + static_cast<size_t>(a.max_pos - Lk + q0) * kD;
+    const int e_valid = nq + Lk - 1;
     for (int c = tid; c < e_valid * 8; c += nthr) {
       const int r = c >> 3, col = (c & 7) * 8;
       cp_async16(Es + r * kRow + col, eg + r * kD + col);
@@ -165,8 +204,8 @@ attention_mma_kernel(Args a, float scale) {
       *reinterpret_cast<uint4*>(Es + r * kRow + col) = zero;
     }
   }
-  for (int c = tid; c < (lay.lq_pad - Lq) * 8; c += nthr) {
-    const int r = Lq + (c >> 3), col = (c & 7) * 8;
+  for (int c = tid; c < (lay.lq_pad - nq) * 8; c += nthr) {
+    const int r = nq + (c >> 3), col = (c & 7) * 8;
     *reinterpret_cast<uint4*>(Qs + r * kRow + col) = zero;
   }
   for (int c = tid; c < (lay.lk_pad - Lk) * 8; c += nthr) {
@@ -182,12 +221,20 @@ attention_mma_kernel(Args a, float scale) {
     for (int r = tid; r < lay.lk_pad; r += nthr)
       Ms[r] = r < Lk ? mg[r] : -INFINITY;
   }
-  cp_async_wait_all();
-  __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31;
   const int l0 = warp * kTile;
   const int g = lane >> 2, t = lane & 3;  // fragment row, column pair
+  const size_t bh = static_cast<size_t>(b) * a.H + h;
+  // training: the dropout bits of the lane's score fragments (4 bits per
+  // 8-key tile j at bit 4 j), drawn while the copies are in flight
+  uint64_t kb = 0;
+  if (kTrain && a.seed != nullptr)
+    kb = keep_frags<NK>(a.seed,
+                        (bh * Lq + q0 + l0 + g) * static_cast<uint64_t>(Lk),
+                        Lk, t, a.threshold);
+  cp_async_wait_all();
+  __syncthreads();
 
   uint32_t qa[4][4];  // A fragments of the warp's 16 query rows, depth 64
 #pragma unroll
@@ -255,29 +302,24 @@ attention_mma_kernel(Args a, float scale) {
     inv[hr] = 1.f / sum[hr];
   }
   if (kTrain) {
-    const size_t bh = static_cast<size_t>(b) * a.H + h;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int l = l0 + g + 8 * hr;
-      if (t == 0 && l < Lq) a.lse[bh * Lq + l] = mx[hr] + logf(sum[hr]);
+      if (t == 0 && l < nq) a.lse[bh * Lq + q0 + l] = mx[hr] + logf(sum[hr]);
     }
-    // P = s / sum, then dropped: P keep / (1 - p); the factor folds into s
-    const uint8_t* kp =
-        a.keep == nullptr ? nullptr : a.keep + bh * Lq * Lk;
+    // P = s / sum, then dropped: P keep / (1 - p); the factor folds into s.
+    // Keys past Lk already hold P = 0, rows past nq are never stored.
+    if (a.seed != nullptr) {
+      const float kept[2] = {inv[0] * a.drop_scale, inv[1] * a.drop_scale};
 #pragma unroll
-    for (int j = 0; j < 2 * NK; ++j) {
+      for (int j = 0; j < 2 * NK; ++j) {
+        const uint32_t bits = static_cast<uint32_t>(kb >> (4 * j));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int l = l0 + g + 8 * (e >> 1), r = 8 * j + 2 * t + (e & 1);
-        float f = inv[e >> 1];
-        if (kp != nullptr)
-          f = (l < Lq && r < Lk && kp[static_cast<size_t>(l) * Lk + r])
-                  ? f * a.drop_scale
-                  : 0.f;
-        s[j][e] *= f;
+        for (int e = 0; e < 4; ++e)
+          s[j][e] *= (bits >> e & 1u) ? kept[e >> 1] : 0.f;
       }
+      inv[0] = inv[1] = 1.f;
     }
-    inv[0] = inv[1] = 1.f;
   }
 
   // O = P V: P (rounded to bf16) straight from the score fragments
@@ -306,39 +348,50 @@ attention_mma_kernel(Args a, float scale) {
         pack_bf16(o[n][2], o[n][3]);
   }
   __syncwarp();
-  bf16* og = a.out + static_cast<size_t>(b) * Lq * F + h * kD;
+  bf16* og = a.out + (static_cast<size_t>(b) * Lq + q0) * F + h * kD;
 #pragma unroll
   for (int c = lane; c < kTile * 8; c += 32) {
     const int r = c >> 3, col = (c & 7) * 8;
-    if (l0 + r < Lq)
+    if (l0 + r < nq)
       *reinterpret_cast<uint4*>(og + static_cast<size_t>(l0 + r) * F + col) =
           *reinterpret_cast<const uint4*>(Ow + r * kRow + col);
   }
 }
 
+// Launches the instance for a's shape; with ``occupancy`` set, writes the
+// instance's resident blocks per SM there instead of launching.
 template <int NK, bool kTable, bool kTrain>
-int launch_mma(const Args& a, cudaStream_t stream) {
+int launch_mma(const Args& a, cudaStream_t stream, int* occupancy) {
   // above 48 KB a block needs the opt-in; set it once for the largest case
   static bool opted_in = false;
   if (!opted_in) {
-    const size_t most = Layout(kMaxLen, NK * 16, kTable).bytes();
+    const size_t most =
+        Layout(block_rows<kTrain, kTable>(kMaxLen), NK * 16, kTable).bytes();
     cudaError_t e = cudaFuncSetAttribute(
         attention_mma_kernel<NK, kTable, kTrain>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
-  const Layout lay(a.Lq, a.Lk, kTable);
+  const int rows = block_rows<kTrain, kTable>(a.Lq);
+  const Layout lay(rows, a.Lk, kTable);
+  if (occupancy != nullptr)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occupancy, attention_mma_kernel<NK, kTable, kTrain>,
+        rows / kTile * 32, lay.bytes()));
+  const dim3 grid = kTrain ? dim3((a.Lq + rows - 1) / rows, a.H, a.B)
+                          : dim3(a.H, a.B);
   attention_mma_kernel<NK, kTable, kTrain>
-      <<<dim3(a.H, a.B), lay.lq_pad / kTile * 32, lay.bytes(), stream>>>(
+      <<<grid, rows / kTile * 32, lay.bytes(), stream>>>(
           a, 1.0f / sqrtf(static_cast<float>(kD)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NK, bool kTrain>
-int launch_mma_nk(const Args& a, cudaStream_t stream) {
-  return a.table != nullptr ? launch_mma<NK, true, kTrain>(a, stream)
-                            : launch_mma<NK, false, kTrain>(a, stream);
+int launch_mma_nk(const Args& a, cudaStream_t stream, int* occupancy) {
+  return a.table != nullptr
+             ? launch_mma<NK, true, kTrain>(a, stream, occupancy)
+             : launch_mma<NK, false, kTrain>(a, stream, occupancy);
 }
 
 bool aligned16(const void* p) {
@@ -346,19 +399,20 @@ bool aligned16(const void* p) {
 }
 
 template <bool kTrain>
-int launch_bf16(const Args& a, cudaStream_t stream) {
+int launch_bf16(const Args& a, cudaStream_t stream,
+                int* occupancy = nullptr) {
   if (!(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
         aligned16(a.table) && aligned16(a.out)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   switch ((a.Lk + 15) / 16) {
-    case 1: return launch_mma_nk<1, kTrain>(a, stream);
-    case 2: return launch_mma_nk<2, kTrain>(a, stream);
-    case 3: return launch_mma_nk<3, kTrain>(a, stream);
-    case 4: return launch_mma_nk<4, kTrain>(a, stream);
-    case 5: return launch_mma_nk<5, kTrain>(a, stream);
-    case 6: return launch_mma_nk<6, kTrain>(a, stream);
-    case 7: return launch_mma_nk<7, kTrain>(a, stream);
-    case 8: return launch_mma_nk<8, kTrain>(a, stream);
+    case 1: return launch_mma_nk<1, kTrain>(a, stream, occupancy);
+    case 2: return launch_mma_nk<2, kTrain>(a, stream, occupancy);
+    case 3: return launch_mma_nk<3, kTrain>(a, stream, occupancy);
+    case 4: return launch_mma_nk<4, kTrain>(a, stream, occupancy);
+    case 5: return launch_mma_nk<5, kTrain>(a, stream, occupancy);
+    case 6: return launch_mma_nk<6, kTrain>(a, stream, occupancy);
+    case 7: return launch_mma_nk<7, kTrain>(a, stream, occupancy);
+    case 8: return launch_mma_nk<8, kTrain>(a, stream, occupancy);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -385,7 +439,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ mask,
                      const float* __restrict__ table, float* __restrict__ out,
                      int Lq, int Lk, int H, int max_pos, float scale,
-                     const uint8_t* __restrict__ keep, float* __restrict__ lse,
+                     const int64_t* __restrict__ seed,
+                     float* __restrict__ lse, uint32_t threshold,
                      float drop_scale) {
   extern __shared__ float fsmem[];
   float* Ks = fsmem;
@@ -416,6 +471,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const PhiloxKey key = kTrain && seed != nullptr ? philox_key(seed)
+                                                  : PhiloxKey{0u, 0u};
   float* qw = Qs + warp * kD;
   float* pw = Ps + warp * kMaxLen;
   const float* mrow = mask + static_cast<size_t>(b) * Lk;
@@ -465,8 +522,9 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = lane + 32 * j;
       if (r < Lk) {
         float p = s[j] / sum;
-        if (kTrain && keep != nullptr)
-          p = keep[row * Lk + r] ? p * drop_scale : 0.f;
+        if (kTrain && seed != nullptr)
+          p = dropout_keep(key, row * Lk + r, threshold) ? p * drop_scale
+                                                         : 0.f;
         pw[r] = p;
       }
     }
@@ -487,8 +545,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <bool kTrain>
 int launch_f32(const void* q, const void* k, const void* v, const void* mask,
                const void* table, void* out, int B, int Lq, int Lk, int H,
-               int max_pos, const uint8_t* keep, float* lse,
-               float drop_scale, cudaStream_t stream) {
+               int max_pos, const int64_t* seed, float* lse,
+               uint32_t threshold, float drop_scale, cudaStream_t stream) {
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -504,30 +562,55 @@ int launch_f32(const void* q, const void* k, const void* v, const void* mask,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(mask),
       static_cast<const float*>(table), static_cast<float*>(out), Lq, Lk, H,
-      max_pos, 1.0f / sqrtf(static_cast<float>(kD)), keep, lse, drop_scale);
+      max_pos, 1.0f / sqrtf(static_cast<float>(kD)), seed, lse, threshold,
+      drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kTrain>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* table, void* out, int B, int Lq, int Lk, int H,
-           int max_pos, const uint8_t* keep, float* lse, float drop_scale,
-           int dtype, cudaStream_t s) {
+           int max_pos, const int64_t* seed, float* lse, uint32_t threshold,
+           float drop_scale, int dtype, cudaStream_t s) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lq > kMaxLen || Lk <= 0 || Lk > kMaxLen)
     return static_cast<int>(cudaErrorInvalidValue);
   if (table != nullptr && (Lq > max_pos || Lk > max_pos))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kF32)
     return launch_f32<kTrain>(q, k, v, mask, table, out, B, Lq, Lk, H,
-                              max_pos, keep, lse, drop_scale, s);
+                              max_pos, seed, lse, threshold, drop_scale, s);
   if (dtype == kBF16)
     return launch_bf16<kTrain>(
         Args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
              static_cast<const bf16*>(v), static_cast<const float*>(mask),
              static_cast<const bf16*>(table), static_cast<bf16*>(out), B, Lq,
-             Lk, H, max_pos, keep, lse, drop_scale},
+             Lk, H, max_pos, seed, lse, threshold, drop_scale},
         s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// e3d_dropout_keep: out[n] = keep bit of flat element n, one warp per 16
+// rows of one (b, h), each lane writing the bits keep_frag2 gives it for
+// every 16 keys, as the tensor-core kernels draw them.
+__global__ void __launch_bounds__(kMaxWarps * 32)
+dropout_keep_kernel(const int64_t* __restrict__ seed, int Lq, int Lk,
+                    uint32_t threshold, uint8_t* __restrict__ out) {
+  const PhiloxKey key = philox_key(seed);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int l0 = (blockIdx.y * kMaxWarps + (threadIdx.x >> 5)) * kTile;
+  const size_t bh = blockIdx.x;
+  if (l0 >= Lq) return;  // the whole warp: keep_frag shuffles
+  const uint64_t row_g = (bh * Lq + l0 + g) * static_cast<uint64_t>(Lk);
+  for (int m = 0; m < (Lk + 15) / 16; ++m) {
+    const uint32_t bits = keep_frag2(key, row_g, Lk, m, t, threshold);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int l = l0 + g + 8 * ((e >> 1) & 1);
+      const int c = 16 * m + 8 * (e >> 2) + 2 * t + (e & 1);
+      if (l < Lq && c < Lk)
+        out[(bh * Lq + l) * Lk + c] = static_cast<uint8_t>(bits >> e & 1u);
+    }
+  }
 }
 
 }  // namespace
@@ -541,24 +624,61 @@ extern "C" int e3d_attention(const void* q, const void* k, const void* v,
                              int B, int Lq, int Lk, int H, int max_pos,
                              int dtype, void* stream) {
   return launch<false>(q, k, v, mask, table, out, B, Lq, Lk, H, max_pos,
-                       nullptr, nullptr, 1.f, dtype,
+                       nullptr, nullptr, 0u, 1.f, dtype,
                        static_cast<cudaStream_t>(stream));
 }
 
 // The training forward: as e3d_attention, and in addition lse (B, H, Lq)
-// f32 receives each row's log-sum-exp; keep (B, H, Lq, Lk) uint8, or null
-// for no dropout, drops P where it is 0 and scales it by drop_scale where
-// it is not.
+// f32 receives each row's log-sum-exp; seed (2 int64 on the card, or null
+// for no dropout) keys the Philox draws of philox.cuh: P is dropped where
+// the element's word is below threshold and scaled by drop_scale where it
+// is not.
 extern "C" int e3d_attention_train(const void* q, const void* k,
                                    const void* v, const void* mask,
-                                   const void* table, const void* keep,
+                                   const void* table, const void* seed,
                                    void* out, void* lse, int B, int Lq,
                                    int Lk, int H, int max_pos,
-                                   float drop_scale, int dtype,
-                                   void* stream) {
+                                   uint32_t threshold, float drop_scale,
+                                   int dtype, void* stream) {
   if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch<true>(q, k, v, mask, table, out, B, Lq, Lk, H, max_pos,
-                      static_cast<const uint8_t*>(keep),
-                      static_cast<float*>(lse), drop_scale, dtype,
+                      static_cast<const int64_t*>(seed),
+                      static_cast<float*>(lse), threshold, drop_scale, dtype,
                       static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM of the bf16 training forward's instance for
+// (Lq, Lk, with a table or not), as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives it for the block size
+// and shared memory a launch would use.
+extern "C" int e3d_attention_train_occupancy(int Lq, int Lk, int table,
+                                             int* blocks_per_sm) {
+  if (Lq <= 0 || Lq > kMaxLen || Lk <= 0 || Lk > kMaxLen ||
+      blocks_per_sm == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // only the pointers' presence and alignment matter
+  alignas(16) static const bf16 dummy[8] = {};
+  Args a{dummy, dummy, dummy, nullptr, table ? dummy : nullptr, nullptr,
+         1, Lq, Lk, 1, kMaxLen, nullptr, nullptr, 0u, 1.f};
+  a.out = const_cast<bf16*>(dummy);
+  return launch_bf16<true>(a, nullptr, blocks_per_sm);
+}
+
+// out (B, H, Lq, Lk) uint8: the keep bits the training kernels draw for
+// seed and threshold (for tests: the card's bits against the plain
+// version's).
+extern "C" int e3d_dropout_keep(const void* seed, int B, int H, int Lq,
+                                int Lk, uint32_t threshold, void* out,
+                                void* stream) {
+  if (seed == nullptr || out == nullptr || B <= 0 || H <= 0 || Lq <= 0 ||
+      Lk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows_per_block = kMaxWarps * kTile;
+  dropout_keep_kernel<<<dim3(B * H,
+                             (Lq + rows_per_block - 1) / rows_per_block),
+                        kMaxWarps * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(seed), Lq, Lk, threshold,
+      static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

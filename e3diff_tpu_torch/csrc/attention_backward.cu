@@ -6,7 +6,8 @@
 // :162). This is the counterpart of that autodiff for the port's kernel.
 // Per (batch b, head h), with x = (q k^T + q . table[l - r + max_pos - 1]) *
 // scale + mask the forward's logits, P = exp(x - lse), f = keep / (1 - p)
-// (1 without dropout) and dO the output's gradient:
+// (1 without dropout; keep redrawn from the forward's seed with the same
+// Philox4x32-10 mapping, philox.cuh) and dO the output's gradient:
 //   dV     = (P f)^T dO        (P f rounded to v's type, as the forward
 //                               rounds it before P V)
 //   dP     = (dO V^T) f
@@ -16,13 +17,13 @@
 //   dK     = dS^T Q
 //   dtable[l - r + max_pos - 1] += sum_{b, h} dS[b, h, l, r] q[b, l, h, :]
 // S and P are recomputed from q, k, the table window, the mask and the
-// forward's row log-sum-exp; nothing of size Lq x Lk is read or written
-// except the keep mask. delta is summed from P and dP in f32, as autograd
-// differentiates a softmax, not from the forward's output, which is
-// rounded to bf16 in a bf16 run: then each row of dS sums to zero up to
-// f32 rounding (bf16 rounding once the bf16 path rounds dS), and the
-// gradient of a key bias, zero in exact arithmetic, stays at rounding
-// noise.
+// forward's row log-sum-exp, and the keep bits from the seed: nothing of
+// size Lq x Lk is read or written. delta is summed from P and dP in f32,
+// as autograd differentiates a softmax, not from the forward's output,
+// which is rounded to bf16 in a bf16 run: then each row of dS sums to
+// zero up to f32 rounding (bf16 rounding once the bf16 path rounds dS),
+// and the gradient of a key bias, zero in exact arithmetic, stays at
+// rounding noise.
 //
 // bf16 design (the main path trains in bf16): tensor cores, one kernel,
 // attention_bwd_mma_kernel, one block per (h, b) (768 blocks at B=64,
@@ -33,15 +34,14 @@
 // - Staging: the head's 128-byte slices of Q, dO, K and V and the
 //   Lq + Lk - 1 table rows the block reaches go to shared memory as bf16,
 //   kRow apart (csrc/mma.cuh), with 16-byte cp.async copies all in flight
-//   at once; the keep tile ((Lq, Lk) bytes, rows Lk + 16 bytes apart so a
-//   quad's 2-byte reads of eight rows fall in distinct banks), the f32 mask
-//   row and the lse too. Padding rows (to 16 queries and keys, and the
-//   table window's last k-step) are zeroed.
+//   at once; the f32 mask row and the lse too. Padding rows (to 16 queries
+//   and keys, and the table window's last k-step) are zeroed.
 // - Query pass, warp w on queries 16w..16w+15: S = Q K^T on the tensor
 //   cores; the relative bias as R = Q_tile E^T over the tile's window,
 //   written to the warp's f32 scratch and gathered as attention.cu does;
 //   P = exp(x - lse) in the accumulator fragments (0 on padded rows and
-//   keys); dP = dO V^T on the tensor cores, times keep * drop_scale; delta
+//   keys); dP = dO V^T on the tensor cores, times keep * drop_scale (the
+//   fragment's keep bits drawn while the staging copies fly, keep_frag2); delta
 //   by quad shuffles in f32; dS = P (dP - delta) scale, rounded to bf16,
 //   used from registers as the A operand of dQ = dS K (K through
 //   ldmatrix.trans). P f and dS, both bf16, are written over the warp's
@@ -64,8 +64,8 @@
 //   tolerance in chip_smoke.py says so).
 // Shared memory at Lq = Lk = 128 with the table: Q, dO, K, V 73.7 KB, the
 // window 36.9 KB, the warps' regions 75.8 KB (the f32 bias scratch, 16 x
-// 148 floats, is the larger of its two uses), the keep tile 18.4 KB, mask
-// and lse 1 KB: 206 KB, one block per SM. The f32 window of the table
+// 148 floats, is the larger of its two uses), mask and lse 1 KB: 187 KB,
+// one block per SM. The f32 window of the table
 // gradient is never staged: each warp's 16 x 64 tile of it goes from
 // registers to the global atomics.
 //
@@ -88,8 +88,8 @@
 //   over (b, h) changes from run to run (the tolerance in chip_smoke.py
 //   says so).
 // Bound: at the training shape (B=64, Lq=Lk=128, H=12, bf16) the bytes
-// (q, k, v, dO read, dQ, dK, dV written, the keep mask, the lse) are
-// ~101 MB, ~30 us at 3.35 TB/s; its 12.9 Gop (with the table) take 13 us
+// (q, k, v, dO read, dQ, dK, dV written, the lse) are ~89 MB, ~26 us at
+// 3.35 TB/s; its 12.9 Gop (with the table) take 13 us
 // at the bf16 tensor-core peak. The f32 kernels are held back by their
 // arithmetic on CUDA cores; PERF.md has the bf16 kernel's time against
 // the bound.
@@ -99,6 +99,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -116,7 +117,7 @@ struct BwdArgs {
   const void* dout;
   const float* mask;
   const void* table;
-  const uint8_t* keep;
+  const int64_t* seed;  // dropout's Philox key, or null: no dropout
   const float* lse;
   float* delta;
   void* dq;
@@ -124,6 +125,7 @@ struct BwdArgs {
   void* dv;
   float* dtable;
   int B, Lq, Lk, H, max_pos;
+  uint32_t threshold;
   float scale, drop_scale;
 };
 
@@ -209,8 +211,8 @@ attention_bwd_dq_kernel(BwdArgs a) {
   float* gw = qw + kD;                         // the row's dO
   float* dsw = gw + kD;                        // the row's dS, by key
   const size_t bh = static_cast<size_t>(b) * a.H + h;
-  const uint8_t* kp =
-      a.keep == nullptr ? nullptr : a.keep + bh * Lq * Lk;
+  const bool drop = a.seed != nullptr;
+  const PhiloxKey key = drop ? philox_key(a.seed) : PhiloxKey{0u, 0u};
 
   for (int l = warp; l < Lq; l += kWarps) {
     const size_t off = (static_cast<size_t>(b) * Lq + l) * F + h * kD;
@@ -230,9 +232,10 @@ attention_bwd_dq_kernel(BwdArgs a) {
         if (kTable) s += dot64(qw, Es + (l - r + Lk - 1) * kRowF);
         p[j] = expf(s * a.scale + Ms[r] - lse);
         dp[j] = dot64(gw, Vs + r * kRowF);
-        if (kp != nullptr)
-          dp[j] = kp[static_cast<size_t>(l) * Lk + r] ? dp[j] * a.drop_scale
-                                                      : 0.f;
+        if (drop)
+          dp[j] = dropout_keep(key, (bh * Lq + l) * Lk + r, a.threshold)
+                      ? dp[j] * a.drop_scale
+                      : 0.f;
         part = fmaf(p[j], dp[j], part);
       }
     }
@@ -293,8 +296,8 @@ attention_bwd_dkv_kernel(BwdArgs a) {
   float* vw = kw + kD;                             // the key's v
   float* dsc = vw + kD;                            // dS[:, r], by query
   float* pdc = dsc + kMaxLen;                      // (P f)[:, r], by query
-  const uint8_t* kp =
-      a.keep == nullptr ? nullptr : a.keep + bh * Lq * Lk;
+  const bool drop = a.seed != nullptr;
+  const PhiloxKey key = drop ? philox_key(a.seed) : PhiloxKey{0u, 0u};
 
   for (int r = warp; r < Lk; r += kWarps) {
     const size_t koff = (static_cast<size_t>(b) * Lk + r) * F + h * kD;
@@ -312,8 +315,10 @@ attention_bwd_dkv_kernel(BwdArgs a) {
         if (kTable) s += dot64(Qs + l * kRowF, Es + (l - r + Lk - 1) * kRowF);
         const float p = expf(s * a.scale + mr - Ls[l]);
         float f = 1.f;
-        if (kp != nullptr)
-          f = kp[static_cast<size_t>(l) * Lk + r] ? a.drop_scale : 0.f;
+        if (drop)
+          f = dropout_keep(key, (bh * Lq + l) * Lk + r, a.threshold)
+                  ? a.drop_scale
+                  : 0.f;
         const float dp = dot64(Gs + l * kRowF, vw) * f;
         const float ds = p * (dp - Ds[l]) * a.scale;
         dsc[l] = ds;
@@ -398,10 +403,10 @@ __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
 
 // Shared memory of one block: Q, dO, K, V and the table window as bf16
 // rows kRow apart; one region per query tile (the f32 bias scratch, then
-// P f and dS); the keep tile; the f32 mask row and lse.
+// P f and dS); the f32 mask row and lse.
 struct MmaLayout {
-  int lq_pad, lk_pad, nr, nr16, e_rows, rs, ps, ks, region;
-  __host__ __device__ MmaLayout(int Lq, int Lk, bool table, bool keep) {
+  int lq_pad, lk_pad, nr, nr16, e_rows, rs, ps, region;
+  __host__ __device__ MmaLayout(int Lq, int Lk, bool table) {
     lq_pad = round16(Lq);
     lk_pad = round16(Lk);
     nr = (Lk + kTile - 1 + 7) / 8 * 8;  // bias columns a query tile reaches
@@ -409,7 +414,6 @@ struct MmaLayout {
     e_rows = table ? lq_pad - kTile + nr16 : 0;
     rs = nr + 4;
     ps = lk_pad + 8;                    // an odd multiple of 16 bytes
-    ks = keep ? lk_pad + 16 : 0;
     const int pds = 2 * kTile * ps * 2;
     const int bias = table ? kTile * rs * 4 : 0;
     region = round16(pds > bias ? pds : bias);
@@ -417,12 +421,9 @@ struct MmaLayout {
   __host__ __device__ size_t bf16_bytes() const {
     return static_cast<size_t>(2 * lq_pad + 2 * lk_pad + e_rows) * kRow * 2;
   }
-  __host__ __device__ size_t keep_bytes(int Lq) const {
-    return round16(Lq * ks);
-  }
-  __host__ __device__ size_t bytes(int Lq) const {
+  __host__ __device__ size_t bytes() const {
     return bf16_bytes() + static_cast<size_t>(lq_pad / kTile) * region +
-           keep_bytes(Lq) + (lk_pad + lq_pad) * sizeof(float);
+           (lk_pad + lq_pad) * sizeof(float);
   }
 };
 
@@ -449,16 +450,14 @@ __global__ void __launch_bounds__(kMaxTiles * 32)
 attention_bwd_mma_kernel(BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Lq = a.Lq, Lk = a.Lk, F = a.H * kD;
-  const bool with_keep = a.keep != nullptr;
-  const MmaLayout lay(Lq, Lk, kTable, with_keep);
+  const MmaLayout lay(Lq, Lk, kTable);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Gs = Qs + lay.lq_pad * kRow;  // dO
   bf16* Ks = Gs + lay.lq_pad * kRow;
   bf16* Vs = Ks + lay.lk_pad * kRow;
   bf16* Es = Vs + lay.lk_pad * kRow;  // Es[e]: table row e + max_pos - Lk
   unsigned char* Ws = smem + lay.bf16_bytes();
-  uint8_t* Ts = Ws + (lay.lq_pad / kTile) * lay.region;
-  float* Ms = reinterpret_cast<float*>(Ts + lay.keep_bytes(Lq));
+  float* Ms = reinterpret_cast<float*>(Ws + (lay.lq_pad / kTile) * lay.region);
   float* Ls = Ms + lay.lk_pad;
 
   const int h = blockIdx.x, b = blockIdx.y;
@@ -475,31 +474,25 @@ attention_bwd_mma_kernel(BwdArgs a) {
     stage_bf16(Es, static_cast<const bf16*>(a.table) +
                        static_cast<size_t>(a.max_pos - Lk) * kD,
                Lq + Lk - 1, lay.e_rows, kD);
-  if (with_keep) {
-    const uint8_t* kg = a.keep + bh * Lq * Lk;
-    if (Lk % 16 == 0 && reinterpret_cast<uintptr_t>(kg) % 16 == 0) {
-      const int per_row = Lk / 16;
-      for (int c = tid; c < Lq * per_row; c += nthr) {
-        const int l = c / per_row, j = c % per_row;
-        cp_async16(Ts + l * lay.ks + 16 * j,
-                   kg + static_cast<size_t>(l) * Lk + 16 * j);
-      }
-    } else {
-      for (int c = tid; c < Lq * Lk; c += nthr)
-        Ts[(c / Lk) * lay.ks + c % Lk] = kg[c];
-    }
-  }
   const float* mg = a.mask + static_cast<size_t>(b) * Lk;
   for (int r = tid; r < lay.lk_pad; r += nthr)
     Ms[r] = r < Lk ? mg[r] : -INFINITY;
   for (int l = tid; l < lay.lq_pad; l += nthr)
     Ls[l] = l < Lq ? a.lse[bh * Lq + l] : 0.f;
-  cp_async_wait_all();
-  __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row, column pair
   const float scale = a.scale;
+  // the query pass's dropout bits (4 bits per 8-key tile j at bit 4 j),
+  // drawn while the copies are in flight
+  const bool drop = a.seed != nullptr;
+  uint64_t kb = 0;
+  if (drop && warp * kTile < Lq)
+    kb = keep_frags<NK>(
+        a.seed, (bh * Lq + warp * kTile + g) * static_cast<uint64_t>(Lk), Lk,
+        t, a.threshold);
+  cp_async_wait_all();
+  __syncthreads();
 
   // ---- query pass: dQ, and P f and dS into the warp's region ----
   if (warp * kTile < Lq) {
@@ -571,16 +564,12 @@ attention_bwd_mma_kernel(BwdArgs a) {
     for (int j = 0; j < 2 * NK; ++j) {
       const int r = 8 * j + 2 * t;
       float f[4] = {1.f, 1.f, 1.f, 1.f};
-      if (with_keep) {
+      if (drop) {
+        // P is 0 on padded rows and keys: their bits do not matter
+        const uint32_t bits = static_cast<uint32_t>(kb >> (4 * j));
 #pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int l = l0 + g + 8 * hr;
-          uint32_t kb = 0;  // keep bytes of keys r (low) and r + 1
-          if (l < Lq && r < Lk)
-            kb = *reinterpret_cast<const uint16_t*>(Ts + l * lay.ks + r);
-          f[2 * hr] = (kb & 0xffu) ? a.drop_scale : 0.f;
-          f[2 * hr + 1] = (r + 1 < Lk && (kb >> 8)) ? a.drop_scale : 0.f;
-        }
+        for (int e = 0; e < 4; ++e)
+          f[e] = (bits >> e & 1u) ? a.drop_scale : 0.f;
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -755,18 +744,17 @@ int launch_bwd_mma(const BwdArgs& a, cudaStream_t stream) {
   // above 48 KB a block needs the opt-in; set it once for the largest case
   static bool opted_in = false;
   if (!opted_in) {
-    const size_t most =
-        MmaLayout(kMaxLen, NK * kTile, kTable, true).bytes(kMaxLen);
+    const size_t most = MmaLayout(kMaxLen, NK * kTile, kTable).bytes();
     const cudaError_t e = cudaFuncSetAttribute(
         attention_bwd_mma_kernel<NK, kTable>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
-  const MmaLayout lay(a.Lq, a.Lk, kTable, a.keep != nullptr);
+  const MmaLayout lay(a.Lq, a.Lk, kTable);
   const int rows = lay.lq_pad > lay.lk_pad ? lay.lq_pad : lay.lk_pad;
   attention_bwd_mma_kernel<NK, kTable>
-      <<<dim3(a.H, a.B), rows / kTile * 32, lay.bytes(a.Lq), stream>>>(a);
+      <<<dim3(a.H, a.B), rows / kTile * 32, lay.bytes(), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -802,26 +790,28 @@ int launch_bf16(const BwdArgs& a, cudaStream_t stream) {
 // q, dq, dout: (B, Lq, H*64); k, v, dk, dv: (B, Lk, H*64), all in one
 // element type (dtype); mask: (B, Lk) f32 additive; table:
 // (2*max_pos-1, 64) in the element type, or null (then dtable is unused);
-// keep: (B, H, Lq, Lk) uint8 or null; lse: (B, H, Lq) f32 from the training
-// forward; delta: (B, H, Lq) f32 scratch; dtable: (2*max_pos-1, 64) f32,
-// zeroed by the caller, added into. The bf16 path needs 16-byte aligned
+// seed: the forward's 2 int64 on the card, or null for no dropout, with its
+// threshold and drop_scale; lse: (B, H, Lq) f32 from the training forward;
+// delta: (B, H, Lq) f32 scratch; dtable: (2*max_pos-1, 64) f32, zeroed by
+// the caller, added into. The bf16 path needs 16-byte aligned
 // q, k, v, dout and table. Returns cudaGetLastError() after the launches
 // (0 = launched).
 extern "C" int e3d_attention_backward(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* mask, const void* table, const void* keep,
+    const void* mask, const void* table, const void* seed,
     const void* lse, void* delta, void* dq, void* dk, void* dv, void* dtable,
-    int B, int Lq, int Lk, int H, int max_pos, float drop_scale, int dtype,
-    void* stream) {
+    int B, int Lq, int Lk, int H, int max_pos, uint32_t threshold,
+    float drop_scale, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lq > kMaxLen || Lk <= 0 || Lk > kMaxLen)
     return static_cast<int>(cudaErrorInvalidValue);
   if (table != nullptr && (Lq > max_pos || Lk > max_pos || dtable == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{q, k, v, dout, static_cast<const float*>(mask), table,
-                  static_cast<const uint8_t*>(keep),
+                  static_cast<const int64_t*>(seed),
                   static_cast<const float*>(lse), static_cast<float*>(delta),
                   dq, dk, dv, static_cast<float*>(dtable), B, Lq, Lk, H,
-                  max_pos, 1.0f / sqrtf(static_cast<float>(kD)), drop_scale};
+                  max_pos, threshold, 1.0f / sqrtf(static_cast<float>(kD)),
+                  drop_scale};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return launch_f32(a, s);
   if (dtype == kBF16) return launch_bf16(a, s);

@@ -10,8 +10,10 @@ launch counters and the autograd functions that train through them.
   LayerNorm with f32 statistics and an optional affine.
 * ``fused_attention_train`` (``csrc/attention.cu``, the kernels' training
   variant): the same core, with the attention-probability dropout of
-  ``e3diff_tpu/models/blocks.py:162`` applied from a keep mask, and each
-  query row's log-sum-exp written for the backward.
+  ``e3diff_tpu/models/blocks.py:162`` drawn inside the kernel from a seed
+  (Philox4x32-10, ``csrc/philox.cuh``; ``dropout_keep_plain`` is the same
+  function in torch integer ops), and each query row's log-sum-exp written
+  for the backward, which redraws the same bits.
 * ``attention_backward`` (``csrc/attention_backward.cu``) and
   ``layernorm_backward`` (``csrc/layernorm_backward.cu``): the gradients
   that XLA's autodiff computes for the JAX package's einsum attention and
@@ -28,11 +30,21 @@ compute they take the inference kernels; when an input needs a gradient
 ``layernorm_autograd``, whose CUDA path is ``FusedAttentionFn`` /
 ``FusedLayerNormFn`` and whose CPU path is the plain version, which
 autograd differentiates.
+
+Attention dropout is keyed by a seed: a 2-element int64 tensor on q's
+device that ``attention`` draws from the caller's generator per call. The
+kernels read it through its pointer (the host never waits for it), and
+``FusedAttentionFn`` saves its 16 bytes for the backward where a keep mask
+of (B, H, Lq, Lk) bytes was saved before. The plain versions take the keep
+mask itself (``keep``); on the CPU the wrappers build it from the seed with
+``dropout_keep_plain``, so one seed drops the same probabilities on the
+CPU and on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -123,6 +135,65 @@ def _softmax_pv(x, v, num_heads: int, keep=None, dropout_p: float = 0.0):
 def drop_scale(dropout_p: float) -> float:
     """1 / (1 - p) as the kernels take it, an f32 number."""
     return float(torch.tensor(1.0 / (1.0 - dropout_p), dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# dropout bits: Philox4x32-10 (csrc/philox.cuh has the mapping)
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def dropout_threshold(dropout_p: float) -> int:
+    """The kernels' integer threshold: an element is kept iff its 16-bit
+    Philox draw is >= round(p 2^16) (at most 2^16 - 1), which keeps it
+    with a probability within 2^-17 of 1 - p."""
+    return min(round(dropout_p * 2.0 ** 16), 0xFFFF)
+
+
+def _mulhilo32(a, m: int):
+    """(high, low) 32-bit halves of a * m for u32 values a (an int64
+    tensor) and m: through 16-bit limbs, since the int64 product of two
+    u32 values overflows."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    m_lo, m_hi = m & 0xFFFF, m >> 16
+    p0 = a_lo * m_lo
+    mid = a_hi * m_lo + a_lo * m_hi + (p0 >> 16)
+    return a_hi * m_hi + (mid >> 16), ((mid & 0xFFFF) << 16) | (p0 & 0xFFFF)
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 of four u32 counter words and two u32 key words, each
+    an int64 tensor (broadcast together) or int; returns the four u32 output
+    words as int64 tensors."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo32(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+    return c0, c1, c2, c3
+
+
+def dropout_keep_plain(seed, shape, dropout_p: float):
+    """The keep mask (bool, ``shape`` = (B, H, Lq, Lk)) that the training
+    kernels draw for ``seed`` (2 int64; their low 32 bits are the Philox
+    key): element n of the flattened shape is kept iff the 16-bit half
+    n mod 2 (0: low) of word (n mod 8) // 2 of Philox4x32-10 at counter
+    (n // 8 mod 2^32, n // 2^35, 0, 0) is >= ``dropout_threshold``.
+    Torch integer ops on seed's device."""
+    numel = math.prod(shape)
+    c = torch.arange((numel + 7) // 8, dtype=torch.int64, device=seed.device)
+    zero = torch.zeros_like(c)
+    key = seed.to(torch.int64) & _U32
+    words = torch.stack(philox4x32_10((c & _U32, c >> 32, zero, zero),
+                                      (key[0], key[1])), dim=-1)
+    halves = torch.stack((words & 0xFFFF, words >> 16), dim=-1)
+    keep = halves.reshape(-1)[:numel] >= dropout_threshold(dropout_p)
+    return keep.reshape(shape)
 
 
 def attention_plain(q, k, v, mask_add, rel_table=None, *, num_heads: int,
@@ -242,15 +313,26 @@ def _check_attention(name, q, k, v, mask_add, rel_table, num_heads,
     return False
 
 
-def _keep_bytes(name, keep, shape):
-    """The keep mask as the kernels read it: uint8 (B, H, Lq, Lk)."""
-    if keep is None:
+def _check_seed(name, seed, q, dropout_p):
+    """A dropout seed: None, or 2 int64 on q's device with 0 <= p < 1."""
+    if seed is None:
+        return
+    if (tuple(seed.shape) != (2,) or seed.dtype != torch.int64
+            or not seed.is_contiguous()):
+        raise ValueError(f"{name}: seed {tuple(seed.shape)} {seed.dtype}, "
+                         "expected a contiguous (2,) int64 tensor")
+    if seed.device != q.device:
+        raise ValueError(f"{name}: seed on {seed.device}, q on {q.device}")
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"{name}: dropout_p {dropout_p} not in [0, 1)")
+
+
+def _keep_from_seed(seed, q, k, num_heads: int, dropout_p: float):
+    """The plain versions' keep mask for a seed (None without one)."""
+    if seed is None:
         return None
-    if tuple(keep.shape) != shape or keep.dtype not in (torch.bool,
-                                                        torch.uint8):
-        raise ValueError(f"{name}: keep mask {tuple(keep.shape)} "
-                         f"{keep.dtype}, expected {shape} bool or uint8")
-    return keep.contiguous().view(torch.uint8)
+    return dropout_keep_plain(seed, (q.shape[0], num_heads, q.shape[1],
+                                     k.shape[1]), dropout_p)
 
 
 def fused_attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
@@ -287,25 +369,25 @@ def fused_attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
 fused_attention.launches = 0
 
 
-def fused_attention_train(q, k, v, mask_add, rel_table=None, keep=None,
+def fused_attention_train(q, k, v, mask_add, rel_table=None, seed=None,
                           dropout_p: float = 0.0, *, num_heads: int,
                           max_pos: int):
     """The training forward of the attention core: ``fused_attention``'s
-    output with the probabilities dropped where ``keep`` (bool or uint8,
-    (B, H, Lq, Lk), or None for no dropout) is 0 and scaled by
-    1 / (1 - dropout_p) where it is not, and each query row's f32
-    log-sum-exp (B, H, Lq) for the backward."""
+    output with the probabilities dropped where
+    ``dropout_keep_plain(seed, (B, H, Lq, Lk), dropout_p)`` is False and
+    scaled by 1 / (1 - dropout_p) where it is True (seed None: no
+    dropout), and each query row's f32 log-sum-exp (B, H, Lq) for the
+    backward. The kernel draws the bits itself from the seed's device
+    memory."""
     b, lq, _ = q.shape
     lk = k.shape[1]
-    keep_u8 = _keep_bytes("fused_attention_train", keep,
-                          (b, num_heads, lq, lk))
+    _check_seed("fused_attention_train", seed, q, dropout_p)
     if _check_attention("fused_attention_train", q, k, v, mask_add,
                         rel_table, num_heads, max_pos):
-        return attention_train_plain(q, k, v, mask_add, rel_table, keep,
-                                     dropout_p, num_heads=num_heads,
-                                     max_pos=max_pos)
-    if keep_u8 is not None:
-        _check_cuda("fused_attention_train", q, keep_u8)
+        return attention_train_plain(
+            q, k, v, mask_add, rel_table,
+            _keep_from_seed(seed, q, k, num_heads, dropout_p), dropout_p,
+            num_heads=num_heads, max_pos=max_pos)
     if q.dtype == torch.bfloat16:
         _check_aligned16("fused_attention_train", q, k, v,
                          *([rel_table] if rel_table is not None else []))
@@ -315,8 +397,9 @@ def fused_attention_train(q, k, v, mask_add, rel_table=None, keep=None,
     lib = _build.load_library()
     code = lib.e3d_attention_train(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask_add), _ptr(rel_table),
-        _ptr(keep_u8), _ptr(out), _ptr(lse), b, lq, lk, num_heads, max_pos,
-        drop_scale(dropout_p), _DTYPE_CODE[q.dtype], _stream())
+        _ptr(seed), _ptr(out), _ptr(lse), b, lq, lk, num_heads, max_pos,
+        dropout_threshold(dropout_p), drop_scale(dropout_p),
+        _DTYPE_CODE[q.dtype], _stream())
     _raise_on_error("fused_attention_train", code)
     fused_attention_train.launches += 1
     return out, lse
@@ -326,17 +409,18 @@ fused_attention_train.launches = 0
 
 
 def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
-                       keep=None, dropout_p: float = 0.0, *, num_heads: int,
+                       seed=None, dropout_p: float = 0.0, *, num_heads: int,
                        max_pos: int):
     """Gradients of ``fused_attention_train`` with respect to q, k, v (in
     q's type) and the distance table (f32, None without a table), given
-    the output's gradient ``dout`` and the forward's row log-sum-exp. On
-    the card the table gradient is summed over (b, h) with atomics: its
-    last bits change from run to run."""
+    the output's gradient ``dout``, the forward's row log-sum-exp and its
+    dropout seed (the kernel redraws the same keep bits). On the card the
+    table gradient is summed over (b, h) with atomics: its last bits
+    change from run to run."""
     b, lq, _ = q.shape
     lk = k.shape[1]
     name = "attention_backward"
-    keep_u8 = _keep_bytes(name, keep, (b, num_heads, lq, lk))
+    _check_seed(name, seed, q, dropout_p)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype} "
                          f"against q {tuple(q.shape)} {q.dtype}")
@@ -345,12 +429,12 @@ def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
     if _check_attention(name, q, k, v, mask_add, rel_table, num_heads,
                         max_pos):
         return attention_backward_plain(
-            dout, q, k, v, lse, mask_add, rel_table, keep, dropout_p,
+            dout, q, k, v, lse, mask_add, rel_table,
+            _keep_from_seed(seed, q, k, num_heads, dropout_p), dropout_p,
             num_heads=num_heads, max_pos=max_pos)
     if lse.dtype != torch.float32:
         raise ValueError(f"{name}: lse must be float32")
-    _check_cuda(name, q, dout, lse,
-                *([keep_u8] if keep_u8 is not None else []))
+    _check_cuda(name, q, dout, lse)
     if q.dtype == torch.bfloat16:
         _check_aligned16(name, q, k, v, dout,
                          *([rel_table] if rel_table is not None else []))
@@ -363,9 +447,10 @@ def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
     lib = _build.load_library()
     code = lib.e3d_attention_backward(
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(mask_add),
-        _ptr(rel_table), _ptr(keep_u8), _ptr(lse), _ptr(delta), _ptr(dq),
+        _ptr(rel_table), _ptr(seed), _ptr(lse), _ptr(delta), _ptr(dq),
         _ptr(dk), _ptr(dv), _ptr(dtable), b, lq, lk, num_heads, max_pos,
-        drop_scale(dropout_p), _DTYPE_CODE[q.dtype], _stream())
+        dropout_threshold(dropout_p), drop_scale(dropout_p),
+        _DTYPE_CODE[q.dtype], _stream())
     _raise_on_error(name, code)
     attention_backward.launches += 1
     return dq, dk, dv, dtable
@@ -376,39 +461,42 @@ attention_backward.launches = 0
 
 class FusedAttentionFn(torch.autograd.Function):
     """The attention core on the card, differentiable: the forward is
-    ``fused_attention_train``, the backward ``attention_backward``."""
+    ``fused_attention_train``, the backward ``attention_backward``; the
+    dropout seed (16 bytes) is saved, not a keep mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask_add, rel_table, keep, dropout_p,
+    def forward(ctx, q, k, v, mask_add, rel_table, seed, dropout_p,
                 num_heads, max_pos):
-        out, lse = fused_attention_train(q, k, v, mask_add, rel_table, keep,
+        out, lse = fused_attention_train(q, k, v, mask_add, rel_table, seed,
                                          dropout_p, num_heads=num_heads,
                                          max_pos=max_pos)
-        ctx.save_for_backward(q, k, v, lse, mask_add, rel_table, keep)
+        ctx.save_for_backward(q, k, v, lse, mask_add, rel_table, seed)
         ctx.dropout_p, ctx.num_heads, ctx.max_pos = (dropout_p, num_heads,
                                                       max_pos)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, lse, mask_add, rel_table, keep = ctx.saved_tensors
+        q, k, v, lse, mask_add, rel_table, seed = ctx.saved_tensors
         dq, dk, dv, dtable = attention_backward(
-            dout.contiguous(), q, k, v, lse, mask_add, rel_table, keep,
+            dout.contiguous(), q, k, v, lse, mask_add, rel_table, seed,
             ctx.dropout_p, num_heads=ctx.num_heads, max_pos=ctx.max_pos)
         if dtable is not None:
             dtable = dtable.to(rel_table.dtype)
         return dq, dk, dv, None, dtable, None, None, None, None
 
 
-def attention_autograd(q, k, v, mask_add, rel_table, keep, dropout_p: float,
+def attention_autograd(q, k, v, mask_add, rel_table, seed, dropout_p: float,
                        *, num_heads: int, max_pos: int):
     """The differentiable attention core: ``FusedAttentionFn`` on the card,
-    the plain version (through autograd) on the CPU."""
+    the plain version (through autograd, given the seed's keep mask) on
+    the CPU."""
     if q.device.type == "cpu":
-        return attention_autograd_plain(q, k, v, mask_add, rel_table, keep,
-                                        dropout_p, num_heads=num_heads,
-                                        max_pos=max_pos)
-    return FusedAttentionFn.apply(q, k, v, mask_add, rel_table, keep,
+        return attention_autograd_plain(
+            q, k, v, mask_add, rel_table,
+            _keep_from_seed(seed, q, k, num_heads, dropout_p), dropout_p,
+            num_heads=num_heads, max_pos=max_pos)
+    return FusedAttentionFn.apply(q, k, v, mask_add, rel_table, seed,
                                   dropout_p, num_heads, max_pos)
 
 
@@ -420,18 +508,18 @@ def _needs_grad(*tensors) -> bool:
 def attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
               max_pos: int, dropout_p: float = 0.0,
               generator: torch.Generator | None = None):
-    """The models' attention core. With dropout_p > 0 the keep mask is
-    drawn here, ``torch.rand(B, H, Lq, Lk) >= dropout_p`` from
-    ``generator`` (on q's device), as flax's Dropout keeps a probability;
-    with dropout or an input that needs a gradient the core goes through
-    ``attention_autograd``, else through the inference kernel."""
+    """The models' attention core. With dropout_p > 0 a dropout seed is
+    drawn here, 2 int64 in [0, 2^32) from ``generator`` on q's device
+    (the kernels draw the keep bits from it, keeping a probability with
+    probability 1 - p as flax's Dropout does); with dropout or an input
+    that needs a gradient the core goes through ``attention_autograd``,
+    else through the inference kernel."""
     if dropout_p > 0.0 or _needs_grad(q, k, v, rel_table):
-        keep = None
+        seed = None
         if dropout_p > 0.0:
-            b, lq, _ = q.shape
-            keep = torch.rand((b, num_heads, lq, k.shape[1]),
-                              generator=generator, device=q.device) >= dropout_p
-        return attention_autograd(q, k, v, mask_add, rel_table, keep,
+            seed = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64,
+                                 generator=generator, device=q.device)
+        return attention_autograd(q, k, v, mask_add, rel_table, seed,
                                   dropout_p, num_heads=num_heads,
                                   max_pos=max_pos)
     return fused_attention(q, k, v, mask_add, rel_table, num_heads=num_heads,
@@ -520,10 +608,20 @@ def layernorm_backward_plain(dy, x, weight=None, bias=None, residual=None, *,
     return dx.reshape(x.shape).to(x.dtype), dw, db
 
 
-# blocks of the LayerNorm backward's first kernel (csrc/layernorm_backward.cu
-# runs 8 rows at a time per block): enough to fill the card twice over
+# csrc/layernorm_backward.cu's first kernel runs 8 rows at a time per block,
+# with as many blocks as the card holds at once (one partial row of dw and
+# db each): resident blocks per SM (the occupancy API) times the SMs
 _LN_BWD_ROWS_PER_BLOCK = 8
-_LN_BWD_MAX_BLOCKS = 264
+
+
+@functools.cache
+def _ln_bwd_blocks(device, f: int, dtype) -> int:
+    per_sm = ctypes.c_int(0)
+    code = _build.load_library().e3d_layernorm_backward_occupancy(
+        f, _DTYPE_CODE[dtype], ctypes.byref(per_sm))
+    _raise_on_error("layernorm_backward", code)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(per_sm.value, 1) * sms
 
 
 def layernorm_backward(dy, x, weight=None, bias=None, residual=None, *,
@@ -555,7 +653,8 @@ def layernorm_backward(dy, x, weight=None, bias=None, residual=None, *,
     _check_cuda(name, *[t for t in (dy, x, residual, weight)
                         if t is not None])
     rows = x.numel() // f
-    nparts = min(-(-rows // _LN_BWD_ROWS_PER_BLOCK), _LN_BWD_MAX_BLOCKS)
+    nparts = min(-(-rows // _LN_BWD_ROWS_PER_BLOCK),
+                 _ln_bwd_blocks(x.device, f, x.dtype))
     dx = torch.empty_like(x)
 
     def f32(n):

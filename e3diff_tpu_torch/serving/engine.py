@@ -180,7 +180,7 @@ class DesignEngine:
             load_structure_checkpoint,
         )
         from e3diff_tpu_torch.utils.presets import (
-            SHARED_FIELDS,
+            check_shared_fields,
             config_from_sidecar,
             load_ckpt_config,
             structure_sample_config,
@@ -193,11 +193,7 @@ class DesignEngine:
         cfg = config_from_sidecar(structure_sample_config(),
                                   load_ckpt_config(structure_ckpt))
         qside = load_ckpt_config(sequence_ckpt) or {}
-        for k in SHARED_FIELDS:
-            if k in qside and qside[k] != getattr(cfg, k):
-                raise ValueError(
-                    f"checkpoint configs disagree on {k}: structure="
-                    f"{getattr(cfg, k)} vs sequence={qside[k]}")
+        check_shared_fields(cfg, qside)
         qcfg = dataclasses.replace(
             cfg, timesteps=qside.get("timesteps", 50),
             num_hidden_layers=qside.get("num_hidden_layers", 6))

@@ -163,6 +163,37 @@ def _flag_on_command_line(name: str, argv, known_flags=None) -> bool:
     return False
 
 
+def _parser_flag_names(parser) -> list[str]:
+    """Every ``--name`` the parser knows, without the dashes."""
+    return [o[2:] for a in parser._actions for o in a.option_strings
+            if o.startswith("--")]
+
+
+def adopt_ckpt_config(cfg: ExperimentConfig, parser, ckpt_path,
+                      fields=CKPT_BOUND_FIELDS, argv=None
+                      ) -> tuple[ExperimentConfig, dict]:
+    """Take each of ``fields`` from the ``config.json`` sidecar beside
+    ``ckpt_path`` unless its flag is on the command line (``argv``, or
+    sys.argv; an explicit flag wins even when it repeats the default), as
+    the JAX package's sampling scripts do, so that a checkpoint samples
+    with the widths, data shapes and diffusion it was trained with.
+    Returns (cfg, adopted {field: value}) and prints what it adopted.
+    Without a checkpoint or a sidecar, cfg is returned as it is."""
+    side = None if ckpt_path is None else load_ckpt_config(ckpt_path)
+    if side is None:
+        return cfg, {}
+    argv = sys.argv[1:] if argv is None else argv
+    known = _parser_flag_names(parser)
+    adopted = {name: side[name] for name in fields
+               if name in side and getattr(cfg, name) != side[name]
+               and not _flag_on_command_line(name, argv, known)}
+    if adopted:
+        cfg = dataclasses.replace(cfg, **adopted)
+        print(f"adopted from {ckpt_path} config.json: "
+              + ", ".join(f"{k}={v}" for k, v in adopted.items()))
+    return cfg, adopted
+
+
 def reconcile_run_config(cfg: ExperimentConfig, ckpt_dir: str, parser=None,
                          argv=None) -> tuple[ExperimentConfig, dict]:
     """Make a training invocation agree with an existing run directory.
@@ -176,9 +207,7 @@ def reconcile_run_config(cfg: ExperimentConfig, ckpt_dir: str, parser=None,
     if side is None or not has_ckpt:
         return cfg, {}
     argv = sys.argv[1:] if argv is None else argv
-    known = (None if parser is None else
-             [o[2:] for a in parser._actions for o in a.option_strings
-              if o.startswith("--")])
+    known = None if parser is None else _parser_flag_names(parser)
     adopted, conflicts = {}, []
     for name in TRAIN_BOUND_FIELDS:
         if name not in side or getattr(cfg, name) == side[name]:
@@ -207,6 +236,17 @@ SHARED_FIELDS = (
     "pocket_ext", "max_seq_len", "ligand_max_len", "num_heads",
     "hidden_size", "intermediate_size", "position_embedding_type",
 )
+
+
+def check_shared_fields(cfg: ExperimentConfig, sequence_side: dict | None
+                        ) -> None:
+    """Raise ValueError when the sequence checkpoint's sidecar disagrees
+    with the structure configuration on a SHARED_FIELDS value."""
+    for k in SHARED_FIELDS:
+        if k in (sequence_side or {}) and sequence_side[k] != getattr(cfg, k):
+            raise ValueError(
+                f"checkpoint configs disagree on {k}: structure="
+                f"{getattr(cfg, k)} vs sequence={sequence_side[k]}")
 
 
 def load_ckpt_config(ckpt_path: str) -> dict | None:

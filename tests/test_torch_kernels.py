@@ -226,14 +226,22 @@ def _jax_attention(q, k, v, mask, table, keep, rate, h, max_pos):
 
 
 @pytest.mark.parametrize("with_table", [False, True])
-@pytest.mark.parametrize("rate", [0.0, 0.25])
-def test_attention_training_plain_matches_jax_vjp(with_table, rate):
+@pytest.mark.parametrize("rate,seeded", [(0.0, False), (0.25, False),
+                                         (0.1, True)],
+                         ids=["0.0", "0.25", "seed-0.1"])
+def test_attention_training_plain_matches_jax_vjp(with_table, rate, seeded):
     """attention_train_plain (given JAX's keep mask) and
     attention_backward_plain against jax.vjp of the einsum attention:
-    the output, and the gradients of q, k, v and the distance table."""
+    the output, and the gradients of q, k, v and the distance table. In
+    the seeded case the wrappers take a dropout seed and JAX the mask
+    that dropout_keep_plain draws from it."""
     q, k, v, mask, table = _inputs(seed=3, ragged=True)
     rng = np.random.default_rng(4)
     keep = rng.random((B, H, LQ, LK)) >= rate if rate else None
+    seed = None
+    if seeded:
+        seed = torch.tensor([0x9E3779B9, 12345], dtype=torch.int64)
+        keep = kernels.dropout_keep_plain(seed, (B, H, LQ, LK), rate).numpy()
     dout = rng.normal(size=q.shape).astype(np.float32)
     tab = table if with_table else None
 
@@ -249,13 +257,18 @@ def test_attention_training_plain_matches_jax_vjp(with_table, rate):
     kw = dict(num_heads=H, max_pos=MAX_POS)
     tkeep = None if keep is None else t(keep)
     args = (t(q), t(k), t(v), t(mask), None if tab is None else t(tab))
-    before = kernels.fused_attention_train.launches
-    out, lse = kernels.fused_attention_train(*args, tkeep, rate, **kw)
-    assert kernels.fused_attention_train.launches == before  # CPU: plain
+    if seeded:
+        before = kernels.fused_attention_train.launches
+        out, lse = kernels.fused_attention_train(*args, seed, rate, **kw)
+        assert kernels.fused_attention_train.launches == before  # CPU: plain
+        got = kernels.attention_backward(t(dout), *args[:3], lse, *args[3:],
+                                         seed, rate, **kw)
+    else:
+        out, lse = kernels.attention_train_plain(*args, tkeep, rate, **kw)
+        got = kernels.attention_backward_plain(t(dout), *args[:3], lse,
+                                               *args[3:], tkeep, rate, **kw)
     np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5,
                                rtol=1e-4)
-    got = kernels.attention_backward(t(dout), *args[:3], lse, *args[3:],
-                                     tkeep, rate, **kw)
     assert (got[3] is None) == (tab is None)
     for g, w in zip(got, grads):
         if w is not None:
@@ -367,14 +380,15 @@ def test_autograd_paths_match_backward_plain_versions():
         torch.from_numpy(mask), leaves[3].detach(), **kw)
     for leaf, w in zip(leaves, want):
         torch.testing.assert_close(leaf.grad, w, atol=1e-5, rtol=1e-4)
-    # dropout draws its keep mask inside attention(); the same draws given
-    # to the plain version reproduce the output
+    # dropout draws its seed inside attention(); the keep mask of the same
+    # draw given to the plain version reproduces the output
     gen = torch.Generator().manual_seed(2)
     dropped = kernels.attention(*(x.detach() for x in leaves[:3]),
                                 torch.from_numpy(mask), leaves[3].detach(),
                                 dropout_p=0.1, generator=gen, **kw)
-    redraw = torch.rand(B, H, LQ, LK, generator=torch.Generator(
-        ).manual_seed(2)) >= 0.1
+    seed = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(2))
+    redraw = kernels.dropout_keep_plain(seed, (B, H, LQ, LK), 0.1)
     torch.testing.assert_close(dropped, kernels.attention_train_plain(
         *(x.detach() for x in leaves[:3]), torch.from_numpy(mask),
         leaves[3].detach(), redraw, 0.1, **kw)[0], atol=0, rtol=0)
@@ -458,8 +472,8 @@ def test_attention_backward_plain_bf16_matches_float64_formula(with_table,
     kw = dict(num_heads=H, max_pos=MAX_POS)
     _, lse = kernels.attention_train_plain(q, k, v, mask, tab, keep, rate,
                                            **kw)
-    got = kernels.attention_backward(dout, q, k, v, lse, mask, tab, keep,
-                                     rate, **kw)
+    got = kernels.attention_backward_plain(dout, q, k, v, lse, mask, tab,
+                                           keep, rate, **kw)
     want = _backward_f64(dout, q, k, v, lse, mask, tab, keep, rate)
     assert (got[3] is None) == (tab is None)
     for g, w in zip(got[:3], want[:3]):
@@ -493,11 +507,124 @@ def test_attention_backward_plain_bf16_near_jax_vjp(with_table, rate):
     kw = dict(num_heads=H, max_pos=MAX_POS)
     _, lse = kernels.attention_train_plain(q, k, v, mask, tab, keep, rate,
                                            **kw)
-    got = kernels.attention_backward(dout, q, k, v, lse, mask, tab, keep,
-                                     rate, **kw)
+    got = kernels.attention_backward_plain(dout, q, k, v, lse, mask, tab,
+                                           keep, rate, **kw)
     for g, w in zip(got, want):
         assert (g is None) == (w is None)
         if w is not None:
             w = np.asarray(w, np.float64)
             dist = np.linalg.norm(g.double().numpy() - w) / np.linalg.norm(w)
             assert dist <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# dropout from a seed: Philox4x32-10 (csrc/philox.cuh), the one mapping of
+# the training kernels and of dropout_keep_plain; the card's bits are held
+# to dropout_keep_plain bit for bit by chip_smoke.py
+# ---------------------------------------------------------------------------
+
+_M0, _M1, _W0, _W1 = 0xD2511F53, 0xCD9E8D57, 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+def _philox_py(counter, key):
+    """Philox4x32-10 in Python integers (Salmon et al., SC 2011)."""
+    c, (k0, k1) = list(counter), key
+    for _ in range(10):
+        p0, p1 = _M0 * c[0], _M1 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k0, p1 & _U32, (p0 >> 32) ^ c[3] ^ k1,
+             p0 & _U32]
+        k0, k1 = (k0 + _W0) & _U32, (k1 + _W1) & _U32
+    return c
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((_U32,) * 4, (_U32, _U32),
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+], ids=["zeros", "ones", "pi"])
+def test_philox_known_answers(counter, key, want):
+    """The published known answers of Philox4x32-10, through the port's
+    torch version and the Python one below."""
+    t = lambda x: torch.tensor([x], dtype=torch.int64)  # noqa: E731
+    got = kernels.philox4x32_10(tuple(map(t, counter)), tuple(map(t, key)))
+    assert tuple(int(w) for w in got) == want
+    assert tuple(_philox_py(counter, key)) == want
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (2, 3, 17, 5)])
+@pytest.mark.parametrize("rate", [0.1, 0.25])
+def test_dropout_keep_plain_matches_python_philox(shape, rate):
+    """Element n keeps iff the 16-bit half n mod 2 of word (n mod 8) // 2
+    of Philox(n // 8) is >= round(p 2^16), the key the seed's low 32 bits
+    (a seed word above 2^32 is cut)."""
+    seed = torch.tensor([2 ** 32 + 0x1234, 0xFEDCBA98], dtype=torch.int64)
+    got = kernels.dropout_keep_plain(seed, shape, rate)
+    assert got.shape == shape and got.dtype == torch.bool
+    thr = round(rate * 2 ** 16)
+    assert kernels.dropout_threshold(rate) == thr
+    want = []
+    for n in range(int(np.prod(shape))):
+        word = _philox_py(((n // 8) & _U32, n // 8 >> 32, 0, 0),
+                          (0x1234, 0xFEDCBA98))[n % 8 // 2]
+        want.append((word >> 16 * (n % 2)) & 0xFFFF >= thr)
+    assert got.reshape(-1).tolist() == want
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.25])
+def test_dropout_keep_rate_within_five_sigma(rate):
+    """At 2^20 elements the kept share is within 5 sigma of 1 - p."""
+    n = 2 ** 20
+    keep = kernels.dropout_keep_plain(torch.tensor([7, 11]), (4, 4, 256, 256),
+                                      rate)
+    sigma = np.sqrt(rate * (1 - rate) / n)
+    assert abs(keep.float().mean().item() - (1 - rate)) <= 5 * sigma
+    assert kernels.dropout_threshold(0.0) == 0
+    assert kernels.dropout_threshold(1 - 2 ** -40) == 0xFFFF
+    assert abs(kernels.dropout_threshold(rate) / 2 ** 16 - rate) <= 2 ** -17
+
+
+def test_attention_dropout_from_a_seeded_generator():
+    """attention() under a gradient draws one seed from the generator; its
+    output and gradients equal the plain versions given
+    dropout_keep_plain of the same draw (the CPU and the card draw one
+    mask for one seed)."""
+    q, k, v, mask, table = _inputs(seed=9, ragged=True)
+    kw = dict(num_heads=H, max_pos=MAX_POS)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, table)]
+    out = kernels.attention(*leaves[:3], torch.from_numpy(mask), leaves[3],
+                            dropout_p=0.25,
+                            generator=torch.Generator().manual_seed(5), **kw)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(6))
+    out.backward(dout)
+    seed = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(5))
+    keep = kernels.dropout_keep_plain(seed, (B, H, LQ, LK), 0.25)
+    assert 0.6 < keep.float().mean().item() < 0.9
+    plain = [x.detach() for x in leaves]
+    want, lse = kernels.attention_train_plain(
+        *plain[:3], torch.from_numpy(mask), plain[3], keep, 0.25, **kw)
+    torch.testing.assert_close(out.detach(), want, atol=0, rtol=0)
+    grads = kernels.attention_backward_plain(
+        dout, *plain[:3], lse, torch.from_numpy(mask), plain[3], keep, 0.25,
+        **kw)
+    for leaf, w in zip(leaves, grads):
+        torch.testing.assert_close(leaf.grad, w, atol=1e-5, rtol=1e-4)
+
+
+def test_dropout_seed_is_checked():
+    q = torch.zeros(2, 4, F)
+    mask = torch.zeros(2, 4)
+    kw = dict(num_heads=H, max_pos=8)
+    for bad in (torch.zeros(2, dtype=torch.int32), torch.zeros(3,
+                                                              dtype=torch.int64)):
+        with pytest.raises(ValueError, match="seed"):
+            kernels.fused_attention_train(q, q, q, mask, None, bad, 0.1, **kw)
+    with pytest.raises(ValueError, match="dropout_p"):
+        kernels.fused_attention_train(q, q, q, mask, None,
+                                      torch.zeros(2, dtype=torch.int64), 1.0,
+                                      **kw)

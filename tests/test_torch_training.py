@@ -428,6 +428,28 @@ def test_train_and_eval_steps_and_dropout():
         trainer.train_step(tb, gumbel=torch.zeros(1))
 
 
+def test_structure_trainer_dropout_reproduces_from_one_seed():
+    """Three train steps at dropout 0.1 (the attention dropout drawn from a
+    seed per call, the hidden Dropout modules by torch.rand, all from the
+    trainer's generator) give the same losses for two runs from one
+    generator seed, and other losses from another seed."""
+    tb = {k: torch.from_numpy(v) for k, v in _batch().items()}
+
+    def losses(seed):
+        model = _tiny_structure(dropout=0.1, attention_dropout=0.1)
+        trainer = StructureTrainer(
+            model, GaussianAngleDiffusion.cosine(T_STRUCT, device="cpu"),
+            AdamW(dict(model.named_parameters()), base_lr=1e-3,
+                  max_epochs=1, steps_per_epoch=3),
+            generator=torch.Generator().manual_seed(seed))
+        return [trainer.train_step(tb)["train_loss"].item() for _ in range(3)]
+
+    first = losses(0)
+    assert np.isfinite(first).all()
+    assert losses(0) == first
+    assert losses(1) != first
+
+
 def test_dropout_module_and_storage_guard():
     d = Dropout(0.25)
     d.generator = torch.Generator().manual_seed(0)
@@ -718,6 +740,80 @@ def test_final_checkpoints_serve_and_cross_to_jax(trained):
         got = eng.sequence_model(torch.from_numpy(tq),
                                  *(torch.from_numpy(a) for a in args))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def test_sample_cli_adopts_the_trained_sidecar(trained, tmp_path, capsys):
+    """A port-trained hidden-32 final.pt samples through
+    cli.sample_structure with no width flags: the sidecar's widths, data
+    shapes (pocket_ext 4) and timesteps are adopted, as the JAX package's
+    sampling scripts adopt them; an explicit --pocket_ext 0 wins."""
+    from e3diff_tpu_torch.cli.sample_structure import main as sample
+
+    root, _ = trained
+    run = ["--synthetic", "--device", "cpu", "--ckpt",
+           str(root / "structure" / "final.pt"), "--batch_size", "4",
+           "--sampler", "ddim", "--ddim_steps", "2", "--no_trajectory"]
+    ds = {ext: LigandBindingSiteData(synthetic_complexes(n=32), "test", 64,
+                                     ext, 16) for ext in (0, 4)}
+    assert not np.array_equal(ds[0].arrays["receptor_attn_mask"],
+                              ds[4].arrays["receptor_attn_mask"])
+    results = sample(run + ["--output", str(tmp_path / "a.pkl")])
+    out = capsys.readouterr().out
+    for field in ("pocket_ext=4", "hidden_size=32", "num_heads=4",
+                  "num_hidden_layers=1", "intermediate_size=64",
+                  "ligand_max_len=16", "timesteps=20"):
+        assert field in out, (field, out)
+    assert [a.shape for a in results] == [
+        (n, 8) for n in ds[4].arrays["ligand_length"][:4]]
+    assert all(np.isfinite(a).all() for a in results)
+    sample(run + ["--pocket_ext", "0", "--output", str(tmp_path / "b.pkl")])
+    out = capsys.readouterr().out
+    assert "hidden_size=32" in out and "pocket_ext" not in out
+
+
+def test_pipeline_cli_refuses_mismatched_sidecars(trained, tmp_path):
+    """run_pipeline holds the two checkpoints' sidecars to SHARED_FIELDS,
+    as DesignEngine.from_checkpoints does."""
+    from e3diff_tpu_torch.cli.run_pipeline import main as pipeline
+
+    root, _ = trained
+    seq_dir = tmp_path / "sequence"
+    seq_dir.mkdir()
+    side = json.loads((root / "sequence" / "config.json").read_text())
+    (seq_dir / "config.json").write_text(json.dumps(
+        dict(side, pocket_ext=side["pocket_ext"] + 1)))
+    (seq_dir / "final.pt").write_bytes(
+        (root / "sequence" / "final.pt").read_bytes())
+    with pytest.raises(SystemExit):
+        pipeline(["--synthetic", "--device", "cpu", "--structure_ckpt",
+                  str(root / "structure" / "final.pt"), "--sequence_ckpt",
+                  str(seq_dir / "final.pt"), "--outdir", str(tmp_path / "o")])
+    with pytest.raises(ValueError, match="disagree on pocket_ext"):
+        DesignEngine.from_checkpoints(
+            str(root / "structure" / "final.pt"), str(seq_dir / "final.pt"),
+            device="cpu")
+
+
+def test_adopt_ckpt_config_matches_jax(trained):
+    """The port's adopt_ckpt_config and the JAX package's agree on one
+    sidecar: the same fields adopted, an explicit flag kept."""
+    import argparse
+
+    from e3diff_tpu.utils import presets as jp
+    from e3diff_tpu_torch.utils import presets as tp
+
+    root, _ = trained
+    ckpt = str(root / "structure" / "final.pt")
+    argv = ["--num_heads", "12"]
+    got = {}
+    for mod in (tp, jp):
+        parser = mod.add_config_flags(argparse.ArgumentParser(),
+                                      mod.structure_sample_config())
+        cfg = mod.config_from_args(parser.parse_args(argv))
+        got[mod] = mod.adopt_ckpt_config(cfg, parser, ckpt, argv=argv)[1]
+    assert got[tp] == got[jp]
+    assert got[tp]["hidden_size"] == 32 and got[tp]["pocket_ext"] == 4
+    assert "num_heads" not in got[tp]
 
 
 @pytest.mark.parametrize("kind", ["structure", "sequence"])
