@@ -19,9 +19,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the plain versions, in bf16 and in f32;
 6. the main path: the structure sampler at B=32, receptor 64, ligand 16 --
    DDPM-1000, DDIM-25 and CFG w=1.5 DDIM-25, with int8_matmul and f32
-   weight storage, plus the sampling CLI -- checking that every sample is
-   finite and in [-pi, pi) and that the kernels were launched exactly
-   13 + 29 times per encode and 25 + 41 times per reverse step;
+   weight storage, plus the sampling CLI, each a fresh sampler that
+   captures its CUDA graphs at its first call -- checking that every
+   sample is finite and in [-pi, pi) and that the run launched the kernels
+   exactly as often as the capture of one encode (13 + 29) and one
+   reverse step (25 + 41) does, its warm-up calls included, and printing
+   the seconds of the first call and of a second one (replays only);
 7. each kernel's device time beside its plain version, a one-call PyTorch
    yardstick and its bound, at each main-path shape;
 8. the design request at full width: the 61M ``SequenceDenoiser`` (its
@@ -32,9 +35,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    structure DDIM-25, sequence D3PM over 50 steps with the uniform
    transition) and on 5 records padded to batch bucket 8, and the
    pipeline CLI -- checking every sequence, every PDB (4 atoms a residue,
-   finite, ideal bond lengths) and the exact launches of both kernels in
-   each stage (13 + 29 per encode and 25 + 41 per DDIM step; 15 + 32 per
-   sequence forward, 50 forwards), and printing seconds per design batch;
+   finite, ideal bond lengths), the exact launches of both kernels in
+   each captured call (13 + 29 per encode and 25 + 41 per DDIM step;
+   15 + 32 per sequence forward) and that a warm engine's design batch
+   launches nothing from Python (replays only), and printing seconds per
+   design batch;
 9. training at full width: the dropout bits the kernels draw from a seed
    (Philox4x32-10, written out by ``e3d_dropout_keep``) against
    ``dropout_keep_plain`` bit for bit, and the bits the training forward
@@ -43,7 +48,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    log-sum-exp), its backward and the LayerNorm backward against their
    plain versions (and in f32 against torch.autograd) at the training
    shapes (B=64, 128 x 128), the sampler's, Lq != Lk, lengths off the
-   16-row tiles, ragged and dead rows, f32 and bf16, then their times
+   16-row tiles, ragged and dead rows, f32 and bf16 (and two backward
+   calls on the same inputs giving the same bits), then their times
    beside the plain versions, the backward of SDPA / of F.layer_norm(x + r)
    and their bounds (the forward also with its seed draw, beside the mask
    draw it replaced; the LayerNorm backward's two kernels apart); for the
@@ -54,17 +60,36 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    0.1 with finite, falling losses and the exact launches of each step
    (38 + 70 forward and 38 + 70 backward; 15 + 32 and 15 + 32), an eval
    step (forward kernels only), the median step time, samples/s and peak
-   memory; both train CLIs for one epoch, and DesignEngine serving a
-   design batch from the two final.pt files they wrote.
+   memory; two 3-step structure runs from one seed ending in the same
+   weights; both train CLIs for one epoch, and DesignEngine serving a
+   design batch from the two final.pt files they wrote;
+10. serving at full width, int8_matmul: the captured samplers against
+   the eager loop on the same draws (structure DDIM-25, DDPM-1000 and a
+   CFG DDIM-25 batch with per-slot scales; sequence D3PM-50, plain and
+   CFG), within GRAPH_TOL, with their seconds; the launches each captured
+   call makes at capture and, by kernel name in a torch.profiler trace,
+   at one replay; a design batch of 32 through DesignEngine with captured
+   and with eager samplers (seconds, and with --profile the device idle
+   share of each); DesignServer on 127.0.0.1:0 -- /healthz 503, then 200
+   after warmup, 40 concurrent /design requests over two ligand buckets
+   all answered 200 with valid sequences and PDBs, /inverse_fold,
+   /stats showing coalesced batches, p50/p95 latency, and a small-queue
+   server answering 429 with Retry-After; then 20 design batches through
+   more buckets than the engine's GraphCache holds, with flat
+   max_memory_allocated.
 
 The last three lines are the kernels' JSON record, the card, and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. The kernels' ``launches`` in the
+record sum three main paths' runs: phase 6's DDPM-1000 int8 run (its
+capture included), phase 10's server (its warmup's captures and 40
+requests) and phase 9's train steps.
 
 Usage, from the root of a checkout:
     python3 chip_smoke.py              # what the checks above need
     python3 chip_smoke.py --profile DIR  # also torch.profiler breakdowns
-                                         # of a DDIM run, a design batch and
-                                         # 3 structure train steps (device
+                                         # of a DDIM run, design batches
+                                         # (captured and eager) and 3
+                                         # structure train steps (device
                                          # busy ms a step, the dropout draws'
                                          # ms), traces written to DIR
 Without a CUDA card, or away from the repository, it exits non-zero and
@@ -109,6 +134,12 @@ PER_STEP = {"fused_attention": 25, "fused_layernorm": 41}
 # the head (1 LN)
 PER_SEQ_FORWARD = {"fused_attention": 15, "fused_layernorm": 32}
 SEQ_T = 50                   # D3PM steps: 49 loop forwards + the final one
+# the calls each sampler captures, one graph each: the structure sampler's
+# pocket encoding and reverse step; the sequence sampler's reverse step and
+# final forward (and, guided, its conditioning: concatenations, no kernel
+# of the port)
+STRUCT_CALLS = {"encode": PER_ENCODE, "step": PER_STEP}
+SEQ_CALLS = {"step": PER_SEQ_FORWARD, "final": PER_SEQ_FORWARD}
 SEQUENCE_PARAMS = 60_990_100  # jax.eval_shape of the JAX model (CPU tests)
 DESIGN_BATCH, SMALL_BATCH = 32, 5   # the second pads to batch bucket 8
 
@@ -583,6 +614,23 @@ def with_zeros(kernels, want: dict[str, int]) -> dict[str, int]:
     return {k.__name__: want.get(k.__name__, 0) for k in kernels.KERNELS}
 
 
+def captured(kernels, calls: dict, programs: int = 1) -> dict[str, int]:
+    """The launches of capturing ``programs`` fresh programs of these
+    calls: every call runs WARMUP_CALLS times eagerly, then once more
+    under capture (sampling/graphs.py); replays launch nothing from
+    Python."""
+    from e3diff_tpu_torch.sampling.graphs import WARMUP_CALLS
+
+    return with_zeros(kernels, {
+        k: programs * (WARMUP_CALLS + 1) * sum(c.get(k, 0)
+                                               for c in calls.values())
+        for k in PER_STEP})
+
+
+def sum_counts(*counts: dict[str, int]) -> dict[str, int]:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def in_angle_range(torch, x) -> bool:
     x = torch.as_tensor(x)
     return bool(x.isfinite().all() and x.min() >= -math.pi
@@ -636,7 +684,10 @@ def main(argv=None) -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, device count "
-          f"{torch.cuda.device_count()}")
+          f"{torch.cuda.device_count()}, CUDAGraph.register_generator_state "
+          f"{hasattr(torch.cuda.CUDAGraph, 'register_generator_state')} "
+          f"(the samplers draw their noise before a graph runs, and need "
+          f"none)")
 
     # 2 ---------------------------------------------------------------
     phase("2. build the kernels (nvcc, sm_90a)")
@@ -756,6 +807,7 @@ def main(argv=None) -> int:
     runs = [("ddpm", T, 1.0), ("ddim", DDIM_STEPS, 1.0),
             ("ddim", DDIM_STEPS, CFG_SCALE)]
     seconds, main_counts = {}, None
+    struct_capture = captured(kernels, STRUCT_CALLS)
     for storage, m in (("int8_matmul", model8), ("f32", model)):
         warm = make_structure_sampler(m, diffusion, sampler="ddim",
                                       ddim_steps=2, guidance_scale=CFG_SCALE,
@@ -773,19 +825,27 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             final, _ = run(batch, generator=g)
             torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
+            first = time.perf_counter() - t0
             counts = launch_counts(kernels)
-            want = with_zeros(kernels, {
-                k: PER_ENCODE[k] + n_steps * PER_STEP[k] for k in PER_STEP})
+            t0 = time.perf_counter()
+            again, _ = run(batch, generator=g)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
             seconds[name] = secs
             print(f"  {name}: {secs:.3f} s ({secs / n_steps * 1e3:.2f} ms "
-                  f"per step), launches {counts}", flush=True)
-            check(counts == want, f"{name}: launches {counts} != {want}")
-            check(tuple(final.shape) == (B, L_LIG, 8), f"{name}: shape")
-            check(in_angle_range(torch, final),
-                  f"{name}: output not finite or outside [-pi, pi)")
+                  f"per step) replayed; first call, capture included, "
+                  f"{first:.3f} s, launches {counts}", flush=True)
+            check(counts == struct_capture,
+                  f"{name}: launches {counts} != {struct_capture}")
+            for out in (final, again):
+                check(tuple(out.shape) == (B, L_LIG, 8), f"{name}: shape")
+                check(in_angle_range(torch, out),
+                      f"{name}: output not finite or outside [-pi, pi)")
             if (sampler, storage) == ("ddpm", "int8_matmul"):
                 main_counts = counts
+    # the samplers' programs hold device memory; later phases measure it
+    del warm, run
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "output.pkl"
@@ -800,11 +860,11 @@ def main(argv=None) -> int:
                             "--no_trajectory", "--output", str(out)])
         secs = time.perf_counter() - t0
         counts = launch_counts(kernels)
-        want = with_zeros(kernels, {k: PER_ENCODE[k] + DDIM_STEPS * PER_STEP[k]
-                                    for k in PER_STEP})
         print(f"  cli ddim-{DDIM_STEPS} int8_matmul: {secs:.3f} s including "
-              f"model build, {len(results)} samples, launches {counts}")
-        check(counts == want, f"cli: launches {counts} != {want}")
+              f"model build and capture, {len(results)} samples, launches "
+              f"{counts}")
+        check(counts == struct_capture,
+              f"cli: launches {counts} != {struct_capture}")
         check(out.is_file() and len(results) > 0, "cli wrote no samples")
         check(all(r.ndim == 2 and r.shape[1] == 8
                   and in_angle_range(torch, r) for r in results),
@@ -892,9 +952,8 @@ def main(argv=None) -> int:
     phase("8. the design request at full width: SequenceDenoiser, device "
           "NERF, DesignEngine")
     t0 = time.perf_counter()
-    design_counts, design_seconds = design_phase(
-        torch, kernels, model, enc, dec, diffusion, batch, gen, card,
-        None if args.profile is None else Path(args.profile))
+    design_seconds = design_phase(torch, kernels, model, enc, dec,
+                                  diffusion, batch, gen, card)
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
     # 9 ---------------------------------------------------------------
@@ -916,23 +975,37 @@ def main(argv=None) -> int:
     train_cli_phase(torch, kernels)
     print(f"  {card}")
     print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
-    # the launches of the main paths' runs: the DDPM-1000 structure run,
-    # the 32-record int8 design batch and the two trainers' train steps
+
+    # 10 --------------------------------------------------------------
+    phase("10. serving: captured samplers against eager, DesignServer, "
+          "memory across cache evictions")
+    t0 = time.perf_counter()
+    serve_counts, serve_seconds = serving_phase(
+        torch, kernels, model, enc, dec, diffusion, batch, card,
+        None if args.profile is None else Path(args.profile))
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+    # the launches of the main paths' runs: the DDPM-1000 structure run
+    # (its capture), the server (its warmup's captures and 40 requests)
+    # and the two trainers' train steps
     for entry in record:
         entry["launches"] = (main_counts[entry["name"]]
-                             + design_counts[entry["name"]]
+                             + serve_counts[entry["name"]]
                              + train_counts[entry["name"]])
 
     if args.profile:
-        phase("profile: DDIM-25 int8_matmul, torch.profiler")
-        profile_sampler(torch, model, diffusion, batch,
-                        make_structure_sampler, cast_inference_params,
-                        StructureDenoiser, enc, dec, Path(args.profile))
+        for eager in (False, True):
+            phase(f"profile: DDIM-25 int8_matmul, "
+                  f"{'eager' if eager else 'captured'}, torch.profiler")
+            profile_sampler(torch, model, diffusion, batch,
+                            make_structure_sampler, cast_inference_params,
+                            StructureDenoiser, enc, dec, Path(args.profile),
+                            eager)
         phase("profile: structure train steps, B=64, torch.profiler")
         profile_train_steps(torch, kernels, Path(args.profile))
 
-    print(f"\nsampler seconds: {json.dumps(seconds)}")
+    print(f"\nsampler seconds, replayed: {json.dumps(seconds)}")
     print(f"design seconds per batch: {json.dumps(design_seconds)}")
+    print(f"serving: {json.dumps(serve_seconds)}")
     print(f"train steps: {json.dumps(train_timing)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
@@ -945,27 +1018,23 @@ def main(argv=None) -> int:
 
 class StageMeter:
     """Wraps a DesignEngine's two samplers to read, for each call, the
-    launches of both kernels and the seconds to the end of its device
-    work (synchronised at the stage's end, where the engine reads its
-    result anyway)."""
+    seconds to the end of its device work (synchronised at the stage's
+    end, where the engine reads its result anyway)."""
 
-    def __init__(self, torch, kernels, engine):
-        self.torch, self.kernels, self.calls = torch, kernels, []
+    def __init__(self, torch, engine):
+        self.torch, self.calls = torch, []
         for stage, attr in (("structure", "_struct_run"),
                             ("sequence", "_seq_run")):
             setattr(engine, attr, self._wrap(stage, getattr(engine, attr)))
 
     def _wrap(self, stage, run):
-        def counted(*args, **kwargs):
-            before = {k.__name__: k.launches for k in self.kernels.KERNELS}
+        def timed_run(*args, **kwargs):
             t0 = time.perf_counter()
             out = run(*args, **kwargs)
             self.torch.cuda.synchronize()
-            self.calls.append((stage, time.perf_counter() - t0, {
-                k.__name__: k.launches - before[k.__name__]
-                for k in self.kernels.KERNELS}))
+            self.calls.append((stage, time.perf_counter() - t0))
             return out
-        return counted
+        return timed_run
 
 
 def pocket_requests(n: int, seed: int) -> list[tuple[str, np.ndarray, int]]:
@@ -1019,9 +1088,8 @@ def check_designs(results, requests, label):
 
 
 def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
-                 card, profile_dir):
-    """Phase 8. Returns the launches of the 32-record int8_matmul design
-    batch and the seconds of every design batch."""
+                 card):
+    """Phase 8. Returns the seconds of every design batch."""
     from e3diff_tpu_torch.cli.run_pipeline import main as pipeline_main
     from e3diff_tpu_torch.diffusion import D3PMDiffusion
     from e3diff_tpu_torch.geometry.nerf import (
@@ -1119,12 +1187,7 @@ def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
     # 8.4-8.5 DesignEngine, both storage modes, two batches each
     cfg = structure_sample_config(ligand_max_len=L_LIG)
     requests = pocket_requests(DESIGN_BATCH, seed=4)
-    want_stage = {
-        "structure": with_zeros(kernels, {
-            k: PER_ENCODE[k] + DDIM_STEPS * PER_STEP[k] for k in PER_STEP}),
-        "sequence": with_zeros(kernels, {
-            k: SEQ_T * PER_SEQ_FORWARD[k] for k in PER_STEP})}
-    seconds, main_design = {}, None
+    seconds = {}
     for storage in ("int8_matmul", "f32"):
         smodel = StructureDenoiser(enc, dec, device="cuda", seed=None)
         smodel.load_state_dict(model.state_dict(), strict=True)
@@ -1138,8 +1201,18 @@ def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
                                  device="cuda"),
             device="cuda", batch_size=DESIGN_BATCH, batch_buckets=[8],
             sampler="ddim", ddim_steps=DDIM_STEPS)
+        kernels.reset_launch_counts()
         eng.warmup(generator=torch.Generator(device="cuda").manual_seed(5))
-        meter = StageMeter(torch, kernels, eng)
+        counts = launch_counts(kernels)
+        programs = eng.graphs.values()
+        want = sum_counts(captured(kernels, STRUCT_CALLS, 2),
+                          captured(kernels, SEQ_CALLS, 2))
+        print(f"  {storage} warmup: {len(programs)} programs captured "
+              f"(batch buckets 8 and {DESIGN_BATCH}), launches {counts}")
+        check(counts == want, f"{storage} warmup: launches {counts} != "
+              f"{want}")
+        check_capture_launches(kernels, programs, f"{storage} engine")
+        meter = StageMeter(torch, eng)
         for label, reqs in ((f"{DESIGN_BATCH} records", requests),
                             (f"{SMALL_BATCH} records in batch bucket 8",
                              requests[:SMALL_BATCH])):
@@ -1154,25 +1227,18 @@ def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
                     device="cuda").manual_seed(6))
             secs = time.perf_counter() - t0
             counts = launch_counts(kernels)
-            stages = {stage: c for stage, _, c in meter.calls}
-            stage_secs = {stage: round(t, 4) for stage, t, _ in meter.calls}
+            stage_secs = {stage: round(t, 4) for stage, t in meter.calls}
             seconds[name] = secs
             print(f"  {name}: {secs:.3f} s per design batch, "
                   f"{len(reqs) / secs:.2f} designs/s; stage seconds "
                   f"{stage_secs} (NERF, PDB text and host work: "
                   f"{secs - sum(stage_secs.values()):.3f} s); launches "
-                  f"{stages}", flush=True)
-            check(len(meter.calls) == 2 and stages == want_stage,
-                  f"{name}: stage launches {meter.calls} != {want_stage}")
-            check(counts == {k: sum(c[k] for c in stages.values())
-                             for k in counts},
-                  f"{name}: launches outside the two samplers: {counts}")
+                  f"from Python {counts} (replays)", flush=True)
+            check(len(meter.calls) == 2 and len(eng.graphs) == 4
+                  and counts == with_zeros(kernels, {}),
+                  f"{name}: a warm engine launched {counts} outside its "
+                  f"graphs, or captured anew")
             check_designs(results, reqs, name)
-            if (storage, label) == ("int8_matmul", f"{DESIGN_BATCH} records"):
-                main_design = counts
-        if profile_dir is not None and storage == "int8_matmul":
-            profile_design(torch, eng, [pocket_record(*r) for r in requests],
-                           profile_dir)
         del eng, smodel, qm
 
     # 8.6 the pipeline CLI
@@ -1186,10 +1252,10 @@ def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
             "--ligand_max_len", str(L_LIG), "--outdir", tmp])
         secs = time.perf_counter() - t0
         counts = launch_counts(kernels)
-        want = {k: want_stage["structure"][k] + want_stage["sequence"][k]
-                for k in counts}
+        want = sum_counts(captured(kernels, STRUCT_CALLS),
+                          captured(kernels, SEQ_CALLS))
         print(f"  cli run_pipeline ddim-{DDIM_STEPS} int8_matmul: {secs:.3f} "
-              f"s including both models' build, "
+              f"s including both models' build and capture, "
               f"{len(results['predict_sequence'])} designs, launches {counts}")
         check(counts == want, f"pipeline cli: launches {counts} != {want}")
         check(len(results["predict_sequence"]) > 0 and all(
@@ -1200,13 +1266,416 @@ def design_phase(torch, kernels, model, enc, dec, diffusion, batch, gen,
               == [len(a) for a in results["generated_angles"]],
               "pipeline cli: sequence lengths")
     print(f"  {card}")
-    return main_design, seconds
+    return seconds
 
 
-def profile_design(torch, eng, records, out: Path):
-    """Device busy share of one 32-record design batch, and its device
-    time by stage: the structure sampler's kernels, the sequence
-    sampler's, and the rest; the chrome trace goes to ``out``."""
+# ---------------------------------------------------------------------------
+# phase 10: serving
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS = 40
+SERVE_LIGAND_BUCKETS = [8, 16]
+MEMORY_LIGAND_BUCKETS, MEMORY_BATCH_BUCKETS = [8, 12, 16], [8, 16]
+MEMORY_BATCHES = 20
+# Captured against eager on the same draws: the graphs replay the kernels
+# and the cuBLAS products that the eager loop launches, on the same
+# inputs, so they are held to the same bits (GRAPH_TOL = 0 in every
+# comparison: the largest wrapped angle difference, and the logits).
+GRAPH_TOL = 0.0
+# max_memory_allocated over the second pass through the buckets against
+# the first, each pass evicting programs from the cache
+MEMORY_SLACK = 0.01
+
+
+def wrapped_max_diff(torch, a, b) -> float:
+    d = a.float() - b.float()
+    return ((d + math.pi) % (2 * math.pi) - math.pi).abs().max().item()
+
+
+def timed(torch, fn):
+    """fn()'s result and its seconds, to the end of its device work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def replay_kernel_counts(torch, call, reset=None) -> dict[str, int]:
+    """The port's inference kernels in a torch.profiler trace of one
+    replay of a captured call, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if reset is not None:
+        reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call.replay()
+        torch.cuda.synchronize()
+    counts = {"fused_attention": 0, "fused_layernorm": 0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = kernel_name_of(e.key)
+        if name.startswith(("attention_mma_kernel", "attention_f32_kernel")):
+            counts["fused_attention"] += e.count
+        elif name.startswith(("layernorm_vec_kernel", "layernorm_any_kernel")):
+            counts["fused_layernorm"] += e.count
+    return counts
+
+
+def check_replays(torch, prog, calls, label):
+    """Each captured call's replay runs the kernels its capture launched,
+    counted by name in a profiler trace; a step replays at index 0."""
+    for name, per in calls.items():
+        call = getattr(prog, name)
+        got = replay_kernel_counts(
+            torch, call, prog.state.i.zero_ if name == "step" else None)
+        want = {k: per.get(k, 0) for k in got}
+        print(f"  {label} {name}: one replay ran {got} (captured "
+              f"{ {k: v for k, v in call.launches.items() if v} })",
+              flush=True)
+        check(got == want, f"{label} {name}: a replay ran {got}, not {want}")
+
+
+def serving_phase(torch, kernels, model, enc, dec, diffusion, batch, card,
+                  profile_dir):
+    """Phase 10. Returns the launches of the server's run (its warmup's
+    captures and its requests) and the phase's seconds."""
+    import concurrent.futures
+    import threading
+    import types
+    import urllib.error
+    import urllib.request
+
+    from e3diff_tpu_torch.data import synthetic_complexes
+    from e3diff_tpu_torch.diffusion import D3PMDiffusion
+    from e3diff_tpu_torch.models import (
+        SequenceDenoiser,
+        StructureDenoiser,
+        sequence_model_configs,
+    )
+    from e3diff_tpu_torch.ops.transitions import UniformTransition
+    from e3diff_tpu_torch.sampling import (
+        make_sequence_sampler,
+        make_structure_sampler,
+    )
+    from e3diff_tpu_torch.serving import (
+        DesignEngine,
+        DesignServer,
+        pocket_record,
+    )
+    from e3diff_tpu_torch.utils.params_io import cast_inference_params
+    from e3diff_tpu_torch.utils.presets import structure_sample_config
+
+    smodel = StructureDenoiser(enc, dec, device="cuda", seed=None)
+    smodel.load_state_dict(model.state_dict(), strict=True)
+    qenc, qdec = sequence_model_configs(max_seq_len=MAX_POS,
+                                        dtype=torch.bfloat16)
+    qm = SequenceDenoiser(qenc, qdec, device="cuda", seed=1)  # phase 8's
+    for m in (smodel, qm):
+        cast_inference_params(m, "int8_matmul")
+    d3pm = D3PMDiffusion.create(UniformTransition(20), SEQ_T, device="cuda")
+    seconds = {}
+    scales = torch.linspace(1.0, 2.0, B, device="cuda")
+
+    # 10.1 the structure sampler, captured against eager
+    angles = None
+    for sampler, n, guided in (("ddim", DDIM_STEPS, False), ("ddpm", T, False),
+                               ("ddim", DDIM_STEPS, True)):
+        name = f"structure {sampler}-{n}{' cfg' if guided else ''} int8"
+        x_init, z = diffusion.draw_noise(
+            (B, L_LIG, 8), n, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(21))
+        noise = {"x_init": x_init, "z": z}
+        w = scales if guided else None
+        kw = dict(sampler=sampler, ddim_steps=n, return_trajectory=False,
+                  guided=guided)
+        eager = make_structure_sampler(smodel, diffusion, eager=True, **kw)
+        run = make_structure_sampler(smodel, diffusion, **kw)
+        prog, capture_s = timed(torch, lambda: run.program(batch))
+        check_capture_launches(kernels, [prog], name)
+        if sampler == "ddim" and not guided:
+            check_replays(torch, prog, STRUCT_CALLS, name)
+        (want, _), eager_s = timed(torch, lambda: eager(batch, noise=noise,
+                                                        scale=w))
+        (got, _), graph_s = timed(torch, lambda: run(batch, noise=noise,
+                                                     scale=w))
+        err = wrapped_max_diff(torch, got, want)
+        seconds[name] = {"eager": eager_s, "captured": graph_s,
+                         "capture": capture_s}
+        print(f"  {name}: eager {eager_s:.3f} s, captured {graph_s:.3f} s "
+              f"({eager_s / graph_s:.1f}x; capture {capture_s:.3f} s), "
+              f"max wrapped |captured - eager| {err:.3e} (tol "
+              f"{GRAPH_TOL:g})", flush=True)
+        check(in_angle_range(torch, got), f"{name}: out of range")
+        check(err <= GRAPH_TOL, f"{name}: captured differs from eager")
+        if sampler == "ddim" and not guided:
+            angles = got
+
+    # 10.2 the sequence sampler, captured against eager
+    sb = dict(batch, ligand_angles=angles,
+              ligand_seq=torch.zeros(B, L_LIG, 20, device="cuda"))
+    for guided in (False, True):
+        name = f"sequence d3pm-{SEQ_T}{' cfg' if guided else ''} int8"
+        x_init, gumbel = d3pm.draw_noise(
+            (B, L_LIG, 20), None, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(22))
+        noise = {"x_init": x_init, "gumbel": gumbel}
+        w = scales if guided else None
+        eager = make_sequence_sampler(qm, d3pm, guided=guided, eager=True)
+        run = make_sequence_sampler(qm, d3pm, guided=guided)
+        prog, capture_s = timed(torch, lambda: run.program(sb))
+        check_capture_launches(kernels, [prog], name)
+        if not guided:
+            check_replays(torch, prog, SEQ_CALLS, name)
+        want, eager_s = timed(torch, lambda: eager(sb, noise=noise, scale=w))
+        got, graph_s = timed(torch, lambda: run(sb, noise=noise, scale=w))
+        err = (got.float() - want.float()).abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        seconds[name] = {"eager": eager_s, "captured": graph_s,
+                         "capture": capture_s}
+        print(f"  {name}: eager {eager_s:.3f} s, captured {graph_s:.3f} s "
+              f"({eager_s / graph_s:.1f}x; capture {capture_s:.3f} s), max "
+              f"|captured - eager| logits {err:.3e} (tol {GRAPH_TOL:g}), "
+              f"argmax agreement {agree:.4f}", flush=True)
+        check(bool(got.isfinite().all()), f"{name}: not finite")
+        check(err <= GRAPH_TOL, f"{name}: captured differs from eager")
+
+    # 10.3 a design batch, captured and eager samplers
+    cfg = structure_sample_config(ligand_max_len=L_LIG)
+    records = [pocket_record(*r) for r in pocket_requests(DESIGN_BATCH, 4)]
+
+    def engine(**kw):
+        return DesignEngine(cfg, smodel, diffusion, qm, d3pm, device="cuda",
+                            batch_size=DESIGN_BATCH, sampler="ddim",
+                            ddim_steps=DDIM_STEPS, **kw)
+
+    eng_graph, eng_eager = engine(), engine()
+    eng_graph.warmup(generator=torch.Generator(device="cuda").manual_seed(5))
+    eng_eager._struct_run = make_structure_sampler(
+        smodel, diffusion, sampler="ddim", ddim_steps=DDIM_STEPS,
+        return_trajectory=False, guided=False, eager=True)
+    eng_eager._seq_run = make_sequence_sampler(qm, d3pm, guided=False,
+                                               eager=True)
+    designs = {}
+    for label, eng in (("eager", eng_eager), ("captured", eng_graph),
+                       ("captured", eng_graph), ("eager", eng_eager)):
+        res, secs = timed(torch, lambda: eng.design_records(
+            records, generator=torch.Generator(device="cuda").manual_seed(6)))
+        seconds.setdefault(f"design batch {DESIGN_BATCH} int8 {label}",
+                           []).append(secs)
+        designs[label] = res
+        print(f"  design batch of {DESIGN_BATCH}, {label} samplers: "
+              f"{secs:.3f} s", flush=True)
+    same = sum(a.sequence == b.sequence and np.array_equal(a.angles, b.angles)
+               for a, b in zip(designs["eager"], designs["captured"]))
+    print(f"  the same designs from one seed, captured and eager: {same} of "
+          f"{DESIGN_BATCH}", flush=True)
+    check(same == DESIGN_BATCH, "captured designs differ from eager ones")
+    if profile_dir is not None:
+        for label, eng in (("captured", eng_graph), ("eager", eng_eager)):
+            busy = profile_design(torch, eng, records, profile_dir, label)
+            seconds[f"design batch device idle {label}"] = 1 - busy
+    del eng_graph, eng_eager
+
+    # 10.4 DesignServer
+    eng = engine(ligand_buckets=SERVE_LIGAND_BUCKETS, batch_buckets=[8])
+    server = DesignServer(eng, port=0)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+
+    def http(method, path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(base + path, data=data, method=method)
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                out = resp.status, json.loads(resp.read()), dict(resp.headers)
+        except urllib.error.HTTPError as e:
+            out = e.code, json.loads(e.read()), dict(e.headers)
+        return (*out, time.perf_counter() - t0)
+
+    try:
+        code = http("GET", "/healthz")[0]
+        check(code == 503, f"/healthz before warmup: {code}")
+        kernels.reset_launch_counts()
+        _, warm_s = timed(torch, lambda: eng.warmup(
+            generator=torch.Generator(device="cuda").manual_seed(5)))
+        code = http("GET", "/healthz")[0]
+        print(f"  server warmup: {len(eng.graphs)} programs captured in "
+              f"{warm_s:.2f} s; /healthz 503 before, {code} after",
+              flush=True)
+        check(code == 200 and len(eng.graphs) == 4 * 2,
+              f"/healthz after warmup: {code}, {len(eng.graphs)} programs")
+        requests = pocket_requests(SERVE_REQUESTS, seed=11)
+        check({SERVE_LIGAND_BUCKETS[0] >= n for _, _, n in requests}
+              == {True, False}, "the requests do not span both buckets")
+
+        def design(req):
+            seq, ang, n = req
+            return http("POST", "/design", {
+                "pocket": {"sequence": seq, "angles": ang.tolist(),
+                           "peptide_length": n},
+                "return_angles": True})
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVE_REQUESTS) as pool:
+            answers = list(pool.map(design, requests))
+        wall = time.perf_counter() - t0
+        codes = [a[0] for a in answers]
+        check(codes == [200] * SERVE_REQUESTS, f"/design codes {codes}")
+        check_designs([types.SimpleNamespace(
+            sequence=a[1]["designs"][0]["sequence"],
+            angles=np.asarray(a[1]["designs"][0]["angles"], np.float32),
+            pdb=a[1]["designs"][0].get("pdb")) for a in answers], requests,
+            "server")
+        rec = synthetic_complexes(n=1, seed=12, receptor_len_range=(8, 20),
+                                  ligand_len_range=(6, 12))[0]
+        code, body, _, _ = http("POST", "/inverse_fold", {"record": {
+            "amino_acid": list(rec["amino_acid"]),
+            "angle_features": np.asarray(rec["angle_features"]).tolist(),
+            "ligand_mask": np.asarray(rec["ligand_mask"]).astype(int).tolist(),
+            "pocket_mask": np.asarray(rec["pocket_mask"]).astype(int).tolist(),
+        }, "n_samples": 3})
+        n_lig = int(np.asarray(rec["ligand_mask"]).sum())
+        check(code == 200 and [len(d["sequence"]) for d in body["sequences"]]
+              == [n_lig] * 3, f"/inverse_fold: {code} {body}")
+        _, stats, _, _ = http("GET", "/stats")
+        serve_counts = launch_counts(kernels)
+        want = sum_counts(captured(kernels, STRUCT_CALLS, 4),
+                          captured(kernels, SEQ_CALLS, 4))
+        lat = sorted(a[3] for a in answers)
+        p50, p95 = lat[len(lat) // 2], lat[min(int(0.95 * len(lat)),
+                                               len(lat) - 1)]
+        seconds["server"] = {
+            "requests": SERVE_REQUESTS, "wall_s": wall,
+            "client_p50_s": p50, "client_p95_s": p95,
+            "batches": stats["batches"],
+            "mean_batch_occupancy": stats["mean_batch_occupancy"],
+            "batcher_p50_ms": stats.get("latency_ms_p50"),
+            "batcher_p95_ms": stats.get("latency_ms_p95")}
+        print(f"  server: {SERVE_REQUESTS} concurrent /design requests over "
+              f"ligand buckets {SERVE_LIGAND_BUCKETS} all 200 in {wall:.3f} "
+              f"s; client latency p50 {p50 * 1e3:.1f} ms, p95 "
+              f"{p95 * 1e3:.1f} ms; /stats {stats['batches']} batches, mean "
+              f"occupancy {stats['mean_batch_occupancy']:.2f}, batcher p50 "
+              f"{stats.get('latency_ms_p50', 0):.1f} ms, p95 "
+              f"{stats.get('latency_ms_p95', 0):.1f} ms; /inverse_fold 200; "
+              f"launches {serve_counts} (warmup captures; replays launch "
+              f"none)", flush=True)
+        check(stats["batches"] < SERVE_REQUESTS
+              and stats["mean_batch_occupancy"] > 1,
+              f"the requests were not coalesced: {stats}")
+        check(serve_counts == want, f"server: launches {serve_counts} != "
+              f"{want}")
+        check(len(eng.graphs) == 8, "the requests captured anew")
+
+        # a small queue under a held device: 429 with Retry-After
+        gate = threading.Event()
+        real = eng.design_slots
+
+        def held(slots, **kw):
+            gate.wait(timeout=60)
+            return real(slots, **kw)
+
+        eng.design_slots = held
+        small = DesignServer(eng, port=0, max_wait_ms=1.0, max_queue=2)
+        small.start()
+        url = f"http://127.0.0.1:{small.port}/design"
+        payload = json.dumps({"pocket": {
+            "sequence": requests[0][0], "angles": requests[0][1].tolist(),
+            "peptide_length": requests[0][2]}, "return_pdb": False}).encode()
+
+        def post():
+            try:
+                with urllib.request.urlopen(urllib.request.Request(
+                        url, data=payload, method="POST"), timeout=300) as r:
+                    return r.status, dict(r.headers)
+            except urllib.error.HTTPError as e:
+                return e.code, dict(e.headers)
+
+        try:
+            with concurrent.futures.ThreadPoolExecutor(3) as pool:
+                held_futs = []
+                for _ in range(3):   # the worker holds one, two fill the queue
+                    held_futs.append(pool.submit(post))
+                    time.sleep(0.3)
+                code, headers = post()
+                gate.set()
+                held_codes = [f.result(timeout=300)[0] for f in held_futs]
+        finally:
+            gate.set()
+            small.shutdown()
+            del eng.design_slots
+        print(f"  small queue (max_queue 2) under a held device: {code}, "
+              f"Retry-After {headers.get('Retry-After')}; the held requests "
+              f"{held_codes}", flush=True)
+        check(code == 429 and int(headers.get("Retry-After", 0)) >= 1
+              and held_codes == [200] * 3, "no 429 with Retry-After")
+    finally:
+        server.shutdown()
+    del eng
+    torch.cuda.empty_cache()
+
+    # 10.5 memory through more buckets than the cache holds
+    eng = engine(ligand_buckets=MEMORY_LIGAND_BUCKETS,
+                 batch_buckets=MEMORY_BATCH_BUCKETS)
+    shapes = [(lig, n) for n in (5, 12, DESIGN_BATCH)
+              for lig in MEMORY_LIGAND_BUCKETS]
+    pockets = pocket_requests(DESIGN_BATCH, seed=13)
+    allocated, peaks = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(MEMORY_BATCHES):
+        lig, n = shapes[i % len(shapes)]
+        if i == len(shapes):
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        eng.design_records([pocket_record(seq, ang, lig)
+                            for seq, ang, _ in pockets[:n]],
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(i),
+                           return_pdb=False)
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated())
+    peaks.append(torch.cuda.max_memory_allocated())
+    secs = time.perf_counter() - t0
+    print(f"  {MEMORY_BATCHES} design batches over {len(shapes)} buckets "
+          f"({2 * len(shapes)} programs, a cache of "
+          f"{eng.graphs.maxsize}) in {secs:.1f} s: max_memory_allocated "
+          f"{peaks[0] / 2**20:.1f} MiB over the first pass, "
+          f"{peaks[1] / 2**20:.1f} MiB after; memory_allocated after each "
+          f"batch (MiB) {[round(a / 2**20, 1) for a in allocated]}",
+          flush=True)
+    check(len(eng.graphs) == eng.graphs.maxsize, "the cache is not full")
+    check(peaks[1] <= (1 + MEMORY_SLACK) * peaks[0],
+          f"device memory grew across evictions: {peaks}")
+    seconds["memory"] = {"first_pass_peak_mib": peaks[0] / 2**20,
+                         "later_peak_mib": peaks[1] / 2**20}
+    del eng
+    print(f"  {card}")
+    return serve_counts, seconds
+
+
+def check_capture_launches(kernels, programs, label):
+    """Each captured call of each program launched, at its capture, the
+    kernels of one encode, step or forward exactly (STRUCT_CALLS,
+    SEQ_CALLS)."""
+    for prog in programs:
+        calls = STRUCT_CALLS if hasattr(prog, "encode") else SEQ_CALLS
+        for name, per in calls.items():
+            got = getattr(prog, name).launches
+            check(got == with_zeros(kernels, per), f"{label}: the captured "
+                  f"{type(prog).__name__}.{name} launched {got}, not {per}")
+
+
+def profile_design(torch, eng, records, out: Path, label: str):
+    """Device busy share of one 32-record design batch (``label``: the
+    engine's samplers, captured or eager), and its device time by stage:
+    the structure sampler's kernels, the sequence sampler's, and the rest;
+    the chrome trace goes to ``out``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     for attr, stage in (("_struct_run", "structure stage"),
@@ -1230,7 +1699,7 @@ def profile_design(torch, eng, records, out: Path):
     busy = sum(getattr(e, "device_time_total", 0)
                for e in prof.key_averages()
                if e.device_type == cuda and e.key not in stages)
-    print(f"  profile, one design batch of {len(records)}: wall "
+    print(f"  profile, one {label} design batch of {len(records)}: wall "
           f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle "
           f"{100 * (1 - busy / wall_us):.1f}%")
     for e in prof.key_averages():
@@ -1239,14 +1708,16 @@ def profile_design(torch, eng, records, out: Path):
                   f"kernels' device time "
                   f"{getattr(e, 'device_time_total', 0) / 1e3:.2f} ms")
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "design_batch_trace.json"))
+    prof.export_chrome_trace(str(out / f"design_batch_{label}_trace.json"))
+    return busy / wall_us
 
 
 def profile_sampler(torch, model, diffusion, batch, make_structure_sampler,
                     cast_inference_params, StructureDenoiser, enc, dec,
-                    out: Path):
+                    out: Path, eager: bool):
     """Device busy share and the kernels by device time over one DDIM-25
-    run with int8 storage; the chrome trace goes to ``out``."""
+    run with int8 storage, its second (captured: replays only; or the eager
+    loop); the chrome trace goes to ``out``."""
     from torch.profiler import ProfilerActivity, profile
 
     m = StructureDenoiser(enc, dec, device="cuda", seed=None)
@@ -1254,7 +1725,7 @@ def profile_sampler(torch, model, diffusion, batch, make_structure_sampler,
     cast_inference_params(m, "int8_matmul")
     run = make_structure_sampler(m, diffusion, sampler="ddim",
                                  ddim_steps=DDIM_STEPS,
-                                 return_trajectory=False)
+                                 return_trajectory=False, eager=eager)
     run(batch, generator=torch.Generator(device="cuda").manual_seed(2))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1279,14 +1750,16 @@ def profile_sampler(torch, model, diffusion, batch, make_structure_sampler,
         print(f"  {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
     print_port_kernels(rows)
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "ddim25_int8_trace.json"))
+    prof.export_chrome_trace(str(
+        out / f"ddim25_int8_{'eager' if eager else 'captured'}_trace.json"))
 
 
 def print_port_kernels(rows):
     """The port's kernels among the profiler's (device us, calls, name)
     rows: their sum, then each one's time and time per call."""
     ours = [r for r in rows if re.search(
-        r"\b(attention|layernorm)_\w+_kernel|column_sum_kernel", r[2])]
+        r"\b(attention|layernorm)_\w+_kernel|column_sum_kernel"
+        r"|table_grad_sum_kernel", r[2])]
     print(f"  the port's kernels: {sum(r[0] for r in ours) / 1e3:.3f} ms "
           f"of device time in {sum(r[1] for r in ours)} calls")
     for dev, count, key in ours:
@@ -1376,8 +1849,8 @@ TRAIN_LN_ROWS = [TRAIN_B * TRAIN_L, 512]
 DROPOUT = 0.1
 # The backward kernels against their plain versions, as the largest error
 # over the largest |value| of the plain result. f32: both sum the same f32
-# products in different orders (and the table gradient over (b, h) with
-# atomics, in an order that changes from run to run): 1e-4. bf16: the same
+# products in different orders (the kernels' table gradient over (b, h)
+# in a fixed order of their own, the same on every run): 1e-4. bf16: the same
 # inputs and f32 arithmetic, but dQ, dK and dV are rounded to bf16 (a step
 # of 2^-8 relative) after sums in different orders, and P f is rounded to
 # bf16 before dV, so a value near a rounding boundary may land one step
@@ -1430,9 +1903,18 @@ def attention_train_check(torch, kernels, gen, case, dtype, p):
     dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     got = kernels.attention_backward(dout, q, k, v, lse, mask, tab,
                                      seed, p, **kw)
+    again = kernels.attention_backward(dout, q, k, v, lse, mask, tab,
+                                       seed, p, **kw)
     want = kernels.attention_backward_plain(dout, q, k, v, lse, mask,
                                             tab, keep, p, **kw)
     torch.cuda.synchronize()
+    same = [name for name, a, b in zip(("dq", "dk", "dv", "dtable"), got,
+                                       again)
+            if a is not None and torch.equal(a, b)]
+    print(f"  attention bwd {tag}: a second call gives the same bits in "
+          f"{same}", flush=True)
+    check(len(same) == (4 if tab is not None else 3),
+          f"{tag}: two backward calls on the same inputs differ")
     rel = BWD_DEAD_REL if case.dead else BWD_REL[dname]
     errs = {}
     for name, g, w in zip(("dq", "dk", "dv", "dtable"), got, want):
@@ -2019,9 +2501,33 @@ def trainer_phase(torch, kernels, kind, gen) -> tuple[dict, dict]:
           f"{kind} accumulated step: not finite")
     del trainer
     torch.cuda.empty_cache()
+    if kind == "structure":
+        reproducible_steps(torch, build_trainer, cfg, batch, draws, kind)
     return totals, {"ms_per_step": step_s * 1e3,
                     "samples_per_s": TRAIN_B / step_s,
                     "max_memory_allocated_gib": peak / 2**30}
+
+
+def reproducible_steps(torch, build_trainer, cfg, batch, draws, kind,
+                       n_steps: int = 3):
+    """Two runs of ``n_steps`` train steps from one seed (weights, batch,
+    draws and the trainer's dropout generator) end in the same weights, bit
+    for bit: the table gradient is summed in a fixed order."""
+    weights = []
+    for _ in range(2):
+        trainer = build_trainer(kind, cfg, "cuda", steps_per_epoch=10_000)
+        for _ in range(n_steps):
+            trainer.train_step(batch, **draws)
+        weights.append({k: v.detach().clone()
+                        for k, v in trainer.weights().items()})
+        del trainer
+        torch.cuda.empty_cache()
+    differ = [k for k in weights[0] if not torch.equal(weights[0][k],
+                                                       weights[1][k])]
+    print(f"  {kind}: two {n_steps}-step runs from one seed, "
+          f"{len(weights[0])} weight tensors, {len(differ)} differ "
+          f"{differ[:3]}", flush=True)
+    check(not differ, f"{kind}: two runs from one seed differ in {differ}")
 
 
 def train_cli_phase(torch, kernels):
@@ -2071,11 +2577,11 @@ def train_cli_phase(torch, kernels):
                                      device="cuda").manual_seed(10))
     secs = time.perf_counter() - t0
     counts = launch_counts(kernels)
-    want = with_zeros(kernels, {
-        k: PER_ENCODE[k] + DDIM_STEPS * PER_STEP[k] + SEQ_T * PER_SEQ_FORWARD[k]
-        for k in PER_STEP})
+    want = sum_counts(captured(kernels, STRUCT_CALLS),
+                      captured(kernels, SEQ_CALLS))
     print(f"  DesignEngine from the trained final.pt files: {DESIGN_BATCH} "
-          f"designs in {secs:.3f} s, launches {counts}", flush=True)
+          f"designs in {secs:.3f} s, capture included, launches {counts}",
+          flush=True)
     check(counts == want, f"trained engine: launches {counts} != {want}")
     check_designs(results, requests, "trained checkpoints")
 

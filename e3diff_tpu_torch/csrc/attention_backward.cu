@@ -58,10 +58,17 @@
 // - Table gradient: warp w takes diagonal tiles m = 16w.., 16 diagonals
 //   m = l - r + Lk - 1 each, as dtable[m] = sum_l dS[l, l - m + Lk - 1]
 //   q[l]: A fragments gathered from the stored dS, B = Q rows through
-//   ldmatrix.trans. Each block adds its window to the global f32 gradient
-//   once, one 16-byte atomic (sm_90's float4 atomicAdd) per four elements,
-//   so the summation order over (b, h) changes from run to run (the
-//   tolerance in chip_smoke.py says so).
+//   ldmatrix.trans.
+// - The table gradient is summed in a fixed order, so every run gives the
+//   same bits (as a jitted JAX step does): a block takes head h and a group
+//   of a.group consecutive batch rows, one after the other, and keeps the
+//   group's f32 window in its own slice of dtable_part (the lane that owns
+//   four elements stores them with one 16-byte store for the group's first
+//   row and adds to them for each later row, in order); then
+//   table_grad_sum_kernel adds the G x H slices in a fixed order. The
+//   wrapper picks G so that G x H blocks fill the card once (at B = 64,
+//   H = 12 and one block per SM: 11 groups of 6 rows, 8.6 MB of slices,
+//   which stay in L2).
 // Shared memory at Lq = Lk = 128 with the table: Q, dO, K, V 73.7 KB, the
 // window 36.9 KB, the warps' regions 75.8 KB (the f32 bias scratch, 16 x
 // 148 floats, is the larger of its two uses), mask and lse 1 KB: 187 KB,
@@ -83,10 +90,9 @@
 //   recomputes P and dS for its column, then the warp sums dK and dV over
 //   the queries. With a table the block also keeps dS (Lq x Lk, f32) in
 //   shared memory; once every column is done, each warp sums dS q along
-//   its diagonals l - r = const, one table row each, and adds the row into
-//   the global f32 table gradient with atomics, so the summation order
-//   over (b, h) changes from run to run (the tolerance in chip_smoke.py
-//   says so).
+//   its diagonals l - r = const, one table row each, and stores the row in
+//   the (b, h) slice of dtable_part; table_grad_sum_kernel adds the B x H
+//   slices in a fixed order.
 // Bound: at the training shape (B=64, Lq=Lk=128, H=12, bf16) the bytes
 // (q, k, v, dO read, dQ, dK, dV written, the lse) are ~89 MB, ~26 us at
 // 3.35 TB/s; its 12.9 Gop (with the table) take 13 us
@@ -124,7 +130,8 @@ struct BwdArgs {
   void* dk;
   void* dv;
   float* dtable;
-  int B, Lq, Lk, H, max_pos;
+  float* dtable_part;  // (G, H, Lq + Lk - 1, 64) f32: G = ceil(B / group)
+  int B, Lq, Lk, H, max_pos, group;
   uint32_t threshold;
   float scale, drop_scale;
 };
@@ -345,7 +352,7 @@ attention_bwd_dkv_kernel(BwdArgs a) {
   if (kTable) {
     // table row max_pos - Lk + m gathers the pairs l - r + Lk - 1 = m
     __syncthreads();
-    float* dst = a.dtable + static_cast<size_t>(a.max_pos - Lk) * kD;
+    float* dst = a.dtable_part + bh * ne * kD;
     for (int m = warp; m < ne; m += kWarps) {
       const int lo = max(0, m - (Lk - 1)), hi = min(Lq - 1, m);
       float t0 = 0.f, t1 = 0.f;
@@ -354,10 +361,58 @@ attention_bwd_dkv_kernel(BwdArgs a) {
         t0 = fmaf(ds, Qs[l * kRowF + lane], t0);
         t1 = fmaf(ds, Qs[l * kRowF + lane + 32], t1);
       }
-      atomicAdd(dst + m * kD + lane, t0);
-      atomicAdd(dst + m * kD + lane + 32, t1);
+      dst[m * kD + lane] = t0;
+      dst[m * kD + lane + 32] = t1;
     }
   }
+}
+
+// The table gradient from the kernels' slices: rows max_pos - Lk ..
+// max_pos + Lq - 2 of dtable = the sum of the nparts (ne, 64) slices of
+// part. A block takes 32 float4 columns; its threadIdx.y = c sums the
+// slices c, c + kSumChunks, .. in order, then the chunks are added in the
+// order c = 0, 1, ..: the same bits on every run.
+constexpr int kSumChunks = 8;
+
+__global__ void __launch_bounds__(32 * kSumChunks)
+table_grad_sum_kernel(const float4* __restrict__ part, int nparts, int n4,
+                      float4* __restrict__ dst) {
+  __shared__ float4 chunk[kSumChunks][32];
+  const int i = blockIdx.x * 32 + threadIdx.x;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i < n4) {
+#pragma unroll 4
+    for (int p = threadIdx.y; p < nparts; p += kSumChunks) {
+      const float4 v = part[static_cast<size_t>(p) * n4 + i];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+  }
+  chunk[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < n4) {
+    for (int c = 1; c < kSumChunks; ++c) {
+      const float4 v = chunk[c][threadIdx.x];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    dst[i] = acc;
+  }
+}
+
+// after the backward kernel(s): dtable's window from nparts slices
+int launch_table_sum(const BwdArgs& a, int nparts, cudaStream_t stream) {
+  const int n4 = (a.Lq + a.Lk - 1) * kD / 4;
+  table_grad_sum_kernel<<<(n4 + 31) / 32, dim3(32, kSumChunks), 0,
+                          stream>>>(
+      reinterpret_cast<const float4*>(a.dtable_part), nparts, n4,
+      reinterpret_cast<float4*>(a.dtable +
+                                static_cast<size_t>(a.max_pos - a.Lk) * kD));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kTable>
@@ -384,7 +439,9 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   if (e != cudaSuccess) return static_cast<int>(e);
   attention_bwd_dkv_kernel<kTable>
       <<<grid, kWarps * 32, dkv_smem_bytes(a.Lq, a.Lk, kTable), stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess || !kTable) return static_cast<int>(e2);
+  return launch_table_sum(a, a.B * a.H, stream);
 }
 
 int launch_f32(const BwdArgs& a, cudaStream_t stream) {
@@ -445,9 +502,12 @@ __device__ __forceinline__ uint32_t bits_bf16(const bf16* p) {
   return *reinterpret_cast<const uint16_t*>(p);
 }
 
+// The backward of one (h, b); first: b is the first row of the block's
+// group, whose table gradient starts the group's slice (later rows add to
+// it).
 template <int NK, bool kTable>
-__global__ void __launch_bounds__(kMaxTiles * 32)
-attention_bwd_mma_kernel(BwdArgs a) {
+__device__ __forceinline__ void bwd_mma_row(const BwdArgs& a, int h, int b,
+                                            bool first) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Lq = a.Lq, Lk = a.Lk, F = a.H * kD;
   const MmaLayout lay(Lq, Lk, kTable);
@@ -460,7 +520,6 @@ attention_bwd_mma_kernel(BwdArgs a) {
   float* Ms = reinterpret_cast<float*>(Ws + (lay.lq_pad / kTile) * lay.region);
   float* Ls = Ms + lay.lk_pad;
 
-  const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const size_t bh = static_cast<size_t>(b) * a.H + h;
   const size_t q_base = static_cast<size_t>(b) * Lq * F + h * kD;
@@ -689,7 +748,8 @@ attention_bwd_mma_kernel(BwdArgs a) {
   // ---- table gradient: dtable[m] = sum_l dS[l, l - m + Lk - 1] q[l] ----
   if (kTable) {
     const int ne = Lq + Lk - 1;
-    float* dst = a.dtable + static_cast<size_t>(a.max_pos - Lk) * kD;
+    float* dst = a.dtable_part +
+                 (static_cast<size_t>(blockIdx.y) * a.H + h) * ne * kD;
     // the stored dS of query row l
     auto ds_row = [&](int l) {
       return reinterpret_cast<const bf16*>(Ws + (l / kTile) * lay.region) +
@@ -716,9 +776,9 @@ attention_bwd_mma_kernel(BwdArgs a) {
         }
         mma_depth16(acc, ta, Qs + c0 * kRow, lane);
       }
-      // lanes t and t ^ 1 trade halves so that each adds four adjacent
-      // columns with one 16-byte atomic: even t row g, columns 2t..2t+3;
-      // odd t row g + 8, columns 2t-2..2t+1
+      // lanes t and t ^ 1 trade halves so that each owns four adjacent
+      // columns, one 16-byte store: even t row g, columns 2t..2t+3; odd t
+      // row g + 8, columns 2t-2..2t+1
       const bool odd = t & 1;
       const int m = m0 + g + (odd ? 8 : 0);
 #pragma unroll
@@ -727,20 +787,41 @@ attention_bwd_mma_kernel(BwdArgs a) {
                                          odd ? acc[n][0] : acc[n][2], 1);
         const float x1 = __shfl_xor_sync(0xffffffffu,
                                          odd ? acc[n][1] : acc[n][3], 1);
-        const float4 v = odd ? make_float4(x0, x1, acc[n][2], acc[n][3])
-                             : make_float4(acc[n][0], acc[n][1], x0, x1);
-        if (m < ne)
-          atomicAdd(reinterpret_cast<float4*>(
-                        dst + static_cast<size_t>(m) * kD + 8 * n +
-                        2 * (t & ~1)),
-                    v);
+        float4 v = odd ? make_float4(x0, x1, acc[n][2], acc[n][3])
+                       : make_float4(acc[n][0], acc[n][1], x0, x1);
+        if (m < ne) {
+          float4* p = reinterpret_cast<float4*>(
+              dst + static_cast<size_t>(m) * kD + 8 * n + 2 * (t & ~1));
+          if (!first) {
+            const float4 o = *p;  // this lane's own store for row b - 1
+            v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+          }
+          *p = v;
+        }
       }
     }
   }
 }
 
+// blockIdx.x = h; blockIdx.y = the group of batch rows
+// [a.group * blockIdx.y, a.group * (blockIdx.y + 1)), taken in order
 template <int NK, bool kTable>
-int launch_bwd_mma(const BwdArgs& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(kMaxTiles * 32)
+attention_bwd_mma_kernel(BwdArgs a) {
+  const int b0 = blockIdx.y * a.group;
+  const int b1 = min(a.B, b0 + a.group);
+  for (int b = b0; b < b1; ++b) {
+    if (b > b0) __syncthreads();  // shared memory is staged anew
+    bwd_mma_row<NK, kTable>(a, blockIdx.x, b, b == b0);
+  }
+}
+
+// Launches the kernel over groups of a.group rows (and, with a table, the
+// sum of its slices); with blocks_per_sm, reports the kernel's resident
+// blocks per SM at this shape instead of launching.
+template <int NK, bool kTable>
+int launch_bwd_mma(const BwdArgs& a, cudaStream_t stream,
+                   int* blocks_per_sm) {
   // above 48 KB a block needs the opt-in; set it once for the largest case
   static bool opted_in = false;
   if (!opted_in) {
@@ -753,34 +834,44 @@ int launch_bwd_mma(const BwdArgs& a, cudaStream_t stream) {
   }
   const MmaLayout lay(a.Lq, a.Lk, kTable);
   const int rows = lay.lq_pad > lay.lk_pad ? lay.lq_pad : lay.lk_pad;
+  if (blocks_per_sm != nullptr)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, attention_bwd_mma_kernel<NK, kTable>,
+        rows / kTile * 32, lay.bytes()));
+  const int groups = (a.B + a.group - 1) / a.group;
   attention_bwd_mma_kernel<NK, kTable>
-      <<<dim3(a.H, a.B), rows / kTile * 32, lay.bytes(), stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+      <<<dim3(a.H, groups), rows / kTile * 32, lay.bytes(), stream>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !kTable) return static_cast<int>(e);
+  return launch_table_sum(a, groups * a.H, stream);
 }
 
 template <int NK>
-int launch_bwd_mma_nk(const BwdArgs& a, cudaStream_t stream) {
-  return a.table != nullptr ? launch_bwd_mma<NK, true>(a, stream)
-                            : launch_bwd_mma<NK, false>(a, stream);
+int launch_bwd_mma_nk(const BwdArgs& a, cudaStream_t stream,
+                      int* blocks_per_sm) {
+  return a.table != nullptr
+             ? launch_bwd_mma<NK, true>(a, stream, blocks_per_sm)
+             : launch_bwd_mma<NK, false>(a, stream, blocks_per_sm);
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-int launch_bf16(const BwdArgs& a, cudaStream_t stream) {
+int launch_bf16(const BwdArgs& a, cudaStream_t stream,
+                int* blocks_per_sm = nullptr) {
   if (!(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
         aligned16(a.dout) && aligned16(a.table)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   switch ((a.Lk + kTile - 1) / kTile) {
-    case 1: return launch_bwd_mma_nk<1>(a, stream);
-    case 2: return launch_bwd_mma_nk<2>(a, stream);
-    case 3: return launch_bwd_mma_nk<3>(a, stream);
-    case 4: return launch_bwd_mma_nk<4>(a, stream);
-    case 5: return launch_bwd_mma_nk<5>(a, stream);
-    case 6: return launch_bwd_mma_nk<6>(a, stream);
-    case 7: return launch_bwd_mma_nk<7>(a, stream);
-    case 8: return launch_bwd_mma_nk<8>(a, stream);
+    case 1: return launch_bwd_mma_nk<1>(a, stream, blocks_per_sm);
+    case 2: return launch_bwd_mma_nk<2>(a, stream, blocks_per_sm);
+    case 3: return launch_bwd_mma_nk<3>(a, stream, blocks_per_sm);
+    case 4: return launch_bwd_mma_nk<4>(a, stream, blocks_per_sm);
+    case 5: return launch_bwd_mma_nk<5>(a, stream, blocks_per_sm);
+    case 6: return launch_bwd_mma_nk<6>(a, stream, blocks_per_sm);
+    case 7: return launch_bwd_mma_nk<7>(a, stream, blocks_per_sm);
+    case 8: return launch_bwd_mma_nk<8>(a, stream, blocks_per_sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -789,31 +880,56 @@ int launch_bf16(const BwdArgs& a, cudaStream_t stream) {
 
 // q, dq, dout: (B, Lq, H*64); k, v, dk, dv: (B, Lk, H*64), all in one
 // element type (dtype); mask: (B, Lk) f32 additive; table:
-// (2*max_pos-1, 64) in the element type, or null (then dtable is unused);
-// seed: the forward's 2 int64 on the card, or null for no dropout, with its
-// threshold and drop_scale; lse: (B, H, Lq) f32 from the training forward;
-// delta: (B, H, Lq) f32 scratch; dtable: (2*max_pos-1, 64) f32, zeroed by
-// the caller, added into. The bf16 path needs 16-byte aligned
-// q, k, v, dout and table. Returns cudaGetLastError() after the launches
-// (0 = launched).
+// (2*max_pos-1, 64) in the element type, or null (then dtable and
+// dtable_part are unused); seed: the forward's 2 int64 on the card, or null
+// for no dropout, with its threshold and drop_scale; lse: (B, H, Lq) f32
+// from the training forward; delta: (B, H, Lq) f32 scratch; dtable:
+// (2*max_pos-1, 64) f32, zeroed by the caller, whose rows max_pos - Lk ..
+// max_pos + Lq - 2 are written; dtable_part: (ceil(B / group), H,
+// Lq + Lk - 1, 64) f32 scratch, one slice per block; group: batch rows per
+// block (1 in f32). The bf16 path needs 16-byte aligned q, k, v, dout and
+// table. Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int e3d_attention_backward(
     const void* q, const void* k, const void* v, const void* dout,
     const void* mask, const void* table, const void* seed,
     const void* lse, void* delta, void* dq, void* dk, void* dv, void* dtable,
-    int B, int Lq, int Lk, int H, int max_pos, uint32_t threshold,
-    float drop_scale, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lq > kMaxLen || Lk <= 0 || Lk > kMaxLen)
+    void* dtable_part, int B, int Lq, int Lk, int H, int max_pos, int group,
+    uint32_t threshold, float drop_scale, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lq > kMaxLen || Lk <= 0 ||
+      Lk > kMaxLen || group <= 0 || (dtype == kF32 && group != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (table != nullptr && (Lq > max_pos || Lk > max_pos || dtable == nullptr))
+  if (table != nullptr && (Lq > max_pos || Lk > max_pos || dtable == nullptr ||
+                           dtable_part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{q, k, v, dout, static_cast<const float*>(mask), table,
                   static_cast<const int64_t*>(seed),
                   static_cast<const float*>(lse), static_cast<float*>(delta),
-                  dq, dk, dv, static_cast<float*>(dtable), B, Lq, Lk, H,
-                  max_pos, threshold, 1.0f / sqrtf(static_cast<float>(kD)),
+                  dq, dk, dv, static_cast<float*>(dtable),
+                  static_cast<float*>(dtable_part), B, Lq, Lk, H, max_pos,
+                  group, threshold, 1.0f / sqrtf(static_cast<float>(kD)),
                   drop_scale};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return launch_f32(a, s);
   if (dtype == kBF16) return launch_bf16(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Resident blocks per SM of the bf16 backward at (Lq, Lk), with or without
+// the table (cudaOccupancyMaxActiveBlocksPerMultiprocessor), from which the
+// wrapper picks the batch rows per block.
+extern "C" int e3d_attention_backward_occupancy(int Lq, int Lk, int table,
+                                                int* blocks_per_sm) {
+  if (Lq <= 0 || Lq > kMaxLen || Lk <= 0 || Lk > kMaxLen ||
+      blocks_per_sm == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // only the pointers' presence and alignment matter
+  alignas(16) static const bf16 dummy[8] = {};
+  BwdArgs a{};
+  a.q = a.k = a.v = a.dout = dummy;
+  a.table = table ? dummy : nullptr;
+  a.B = a.H = a.group = 1;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  a.max_pos = kMaxLen;
+  return launch_bf16(a, nullptr, blocks_per_sm);
 }

@@ -13,13 +13,19 @@ The one-step transition is approximated as row-normalise(Qsb / Qtb), as in
 the reference, with its guards (a zero denominator becomes 1e-6, a row of
 zero mass becomes 1e-5 everywhere before it is normalised); at the last
 step (s = 0) the model's raw logits are the output. A categorical draw is
-argmax(log p + Gumbel noise), the draw jax.random.categorical makes; the
-Gumbel noise comes from a ``torch.Generator`` on the device, or is
-injected so that tests can hand both packages the same draws.
+argmax(log p + Gumbel noise), the draw jax.random.categorical makes. Q_bar
+is one (T+1, K, K) table on the device, gathered by step index. A reverse
+run is ``reverse_step`` over the device buffers of a ``D3PMState`` (as in
+diffusion/gaussian.py, so that the step can be captured as a CUDA graph),
+then ``final_logits``. All of a run's draws are made before its first step
+(the one-hot x_init, then every step's Gumbel noise at once) from a
+``torch.Generator`` on the device, or are injected so that tests can hand
+both packages the same draws.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -38,9 +44,24 @@ def sample_gumbel(shape, *, generator: torch.Generator, device):
     return -torch.log(-torch.log(u))
 
 
+@dataclasses.dataclass
+class D3PMState:
+    """The device buffers one reverse run reads and writes: ``x`` (B, L, K)
+    the current one-hots, updated in place; ``gumbel`` (n, B, L, K) each
+    step's Gumbel noise (None for argmax sampling); ``i`` (1,) int64 the
+    next step's index; ``s`` and ``t`` (n,) int64 each step's pair."""
+
+    x: torch.Tensor
+    gumbel: torch.Tensor | None
+    i: torch.Tensor
+    s: torch.Tensor
+    t: torch.Tensor
+
+
 class D3PMDiffusion:
     """alphas_bar: the (T+1,) float32 schedule on the sampler's device;
-    transition: a UniformTransition or BlosumTransition."""
+    transition: a UniformTransition or BlosumTransition; ``q_bar`` the
+    (T+1, K, K) Q_bar of every integer step, through alpha_bar (Q3)."""
 
     def __init__(self, timesteps: int, alphas_bar: torch.Tensor, transition,
                  num_classes: int = 20):
@@ -48,6 +69,7 @@ class D3PMDiffusion:
         self.alphas_bar = alphas_bar
         self.transition = transition
         self.num_classes = num_classes
+        self.q_bar = transition.get_Qt_bar(alphas_bar).to(alphas_bar.device)
 
     @classmethod
     def create(cls, transition, timesteps: int = 50, num_classes: int = 20,
@@ -57,19 +79,25 @@ class D3PMDiffusion:
         return cls(timesteps, torch.from_numpy(sched.alphas_bar).to(device),
                    transition, num_classes)
 
-    def _qt_bar(self, b: int, step: int):
-        """(B, K, K) Q_bar at an integer step, through alpha_bar (Q3)."""
-        idx = torch.full((b,), step, dtype=torch.long,
-                         device=self.alphas_bar.device)
-        return self.transition.get_Qt_bar(self.alphas_bar[idx])
+    def _step_index(self, step):
+        """An int step, or int64 steps on the device, as a 1-D index."""
+        if isinstance(step, torch.Tensor):
+            return step.reshape(-1)
+        return torch.full((1,), int(step), dtype=torch.long,
+                          device=self.q_bar.device)
+
+    def _qt_bar(self, b: int, step):
+        """(B, K, K) Q_bar at a step (an int, or a (1,) or (B,) int64
+        tensor on the device)."""
+        q = self.q_bar.index_select(0, self._step_index(step))
+        return q.expand(b, -1, -1)
 
     def qt_bar_from_t_int(self, t_int):
         """(B, K, K) Q_bar at per-example integer steps, indexed by
         alpha_bar(t) (Q3): the transition maps alpha_bar through its own
         ladder."""
         idx = torch.as_tensor(t_int).to(torch.long).reshape(-1)
-        return self.transition.get_Qt_bar(
-            self.alphas_bar[idx.to(self.alphas_bar.device)])
+        return self.q_bar[idx.to(self.q_bar.device)]
 
     def aa_noise_probs(self, ligand_seq, t_int):
         """Per-token unnormalised substitution probabilities (B, L, K):
@@ -95,13 +123,12 @@ class D3PMDiffusion:
         draws = torch.where(probs.sum(-1) > 0, draws, 0)
         return F.one_hot(draws, self.num_classes).to(ligand_seq.dtype)
 
-    def posterior_probs(self, x_t, pred_logits, s_int: int,
-                        t_int: int | None = None):
+    def posterior_probs(self, x_t, pred_logits, s_int, t_int=None):
         """p(x_s | x_t, model) for every token, (B, L, K) normalised; the
-        whole batch shares the step s. t defaults to s + 1 (the
-        reference's adjacent step); a larger t takes the same ratio
-        approximation over a jump s <- t (skip sampling, not in the
-        reference).
+        whole batch shares the step s (an int or a (1,) int64 tensor on
+        the device). t defaults to s + 1 (the reference's adjacent step);
+        a larger t takes the same ratio approximation over a jump s <- t
+        (skip sampling, not in the reference).
 
         The softmax of the logits is taken in their dtype, as the JAX
         package does (in bf16 under bf16 compute); every product after it
@@ -123,8 +150,8 @@ class D3PMDiffusion:
         unnorm = torch.where(rowsum == 0, 1e-5, unnorm)
         return unnorm / unnorm.sum(-1, keepdim=True)
 
-    def posterior_sample(self, x_t, pred_logits, s_int: int,
-                         diverse: bool = True, t_int: int | None = None, *,
+    def posterior_sample(self, x_t, pred_logits, s_int,
+                         diverse: bool = True, t_int=None, *,
                          generator: torch.Generator | None = None,
                          gumbel=None):
         """One-hot x_s in x_t's dtype: a categorical draw from the
@@ -162,6 +189,55 @@ class D3PMDiffusion:
         t = np.concatenate([[T], ladder[:-1]])
         return list(zip(ladder.tolist(), t.tolist()))
 
+    def reverse_state(self, x_init, gumbel, n_steps: int | None
+                      ) -> D3PMState:
+        """A D3PMState on x_init's device holding a copy of x_init, the
+        draws and the ``step_pairs(n_steps)`` ladder, at step 0."""
+        dev = x_init.device
+        s, t = (torch.tensor(v, dtype=torch.long, device=dev)
+                for v in zip(*self.step_pairs(n_steps)))
+        return D3PMState(
+            x=x_init.clone(),
+            gumbel=None if gumbel is None else gumbel.to(
+                device=dev, dtype=torch.float32),
+            i=torch.zeros(1, dtype=torch.long, device=dev), s=s, t=t)
+
+    def draw_noise(self, shape, n_steps: int | None, *, generator, device,
+                   dtype=torch.float32, diverse: bool = True):
+        """A run's draws from ``generator``, in this order: the one-hot
+        x_init (B, L, K), then every step's Gumbel noise (n_pairs, B, L, K)
+        (None for argmax sampling)."""
+        b, length = shape[:2]
+        x_init = self.init_noise(b, length, generator=generator,
+                                 device=device, dtype=dtype)
+        gumbel = (sample_gumbel((len(self.step_pairs(n_steps)), b, length,
+                                 self.num_classes), generator=generator,
+                                device=device) if diverse else None)
+        return x_init, gumbel
+
+    def reverse_step(self, denoise_fn: Callable, st: D3PMState, *,
+                     diverse: bool) -> None:
+        """One model call at step ``st.i`` and a draw from the posterior
+        (with that step's Gumbel noise, or its argmax), written into
+        ``st.x``; ``st.i`` advances by one. Nothing here reads a value back
+        to the host, so the call can be captured as a CUDA graph."""
+        b = st.x.shape[0]
+        s = st.s.index_select(0, st.i)
+        logits = denoise_fn(s.to(st.x.dtype).expand(b, 1), st.x)
+        x = self.posterior_sample(
+            st.x, logits, s, diverse, t_int=st.t.index_select(0, st.i),
+            gumbel=(None if st.gumbel is None
+                    else st.gumbel.index_select(0, st.i)[0]))
+        st.x.copy_(x)
+        st.i += 1
+
+    @staticmethod
+    def final_logits(denoise_fn: Callable, x):
+        """The last model call, at s = 0: its raw logits (argmax
+        downstream)."""
+        return denoise_fn(torch.zeros((x.shape[0], 1), dtype=x.dtype,
+                                      device=x.device), x)
+
     def sample_loop(self, denoise_fn: Callable, x_init, *,
                     generator: torch.Generator | None = None, gumbel=None,
                     diverse: bool = True, n_steps: int | None = None):
@@ -171,15 +247,13 @@ class D3PMDiffusion:
 
         denoise_fn: (s (B, 1) in x's dtype, x one-hot) -> logits; the
         model sees the raw integer step (Q9). gumbel: optional
-        (n_pairs, B, L, K) draws in place of ``generator``'s."""
-        x = x_init
-        b = x.shape[0]
-        for i, (s, t) in enumerate(self.step_pairs(n_steps)):
-            s_arr = torch.full((b, 1), float(s), dtype=x.dtype,
-                               device=x.device)
-            logits = denoise_fn(s_arr, x)
-            x = self.posterior_sample(
-                x, logits, s, diverse, t_int=t, generator=generator,
-                gumbel=None if gumbel is None else gumbel[i])
-        return denoise_fn(torch.zeros((b, 1), dtype=x.dtype,
-                                      device=x.device), x)
+        (n_pairs, B, L, K) draws in place of ``generator``'s (all drawn
+        before the first step)."""
+        n = len(self.step_pairs(n_steps))
+        if diverse and gumbel is None:
+            gumbel = sample_gumbel((n,) + tuple(x_init.shape),
+                                   generator=generator, device=x_init.device)
+        st = self.reverse_state(x_init, gumbel if diverse else None, n_steps)
+        for _ in range(n):
+            self.reverse_step(denoise_fn, st, diverse=diverse)
+        return self.final_logits(denoise_fn, st.x)

@@ -2,15 +2,20 @@
 e3diff_tpu/diffusion/gaussian.py): the forward noising of training and the
 reverse process, ancestral (DDPM) and DDIM.
 
-The schedule terms are float32 tensors on the sampler's device. Each
-reverse loop is a Python loop over the timestep ladder. Its noise, and
-the training noise, comes from a ``torch.Generator`` on the device, or is
-injected (``noise=``, ``t=``) so that tests can hand both packages the
-same draws.
+The schedule terms are float32 tensors on the sampler's device. A reverse
+run is ``n`` calls of ``reverse_step`` over the device buffers of a
+``ReverseState``: the step reads its index from a device tensor, gathers
+its timestep and noise from device tables, updates the sample in place and
+advances the index, so the same call can be captured once as a CUDA graph
+and replayed (sampling/structure.py) or looped eagerly, as here. All of a
+run's noise is drawn before its first step (x_init, then every step's z at
+once) from a ``torch.Generator`` on the device, or is injected
+(``noise=``, ``t=``) so that tests can hand both packages the same draws.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -39,6 +44,22 @@ def ddim_timesteps(timesteps: int, n_steps: int):
             np.int64)[::-1]
     t_prev = np.concatenate([ts[1:], [-1]]).astype(np.int64)
     return ts.copy(), t_prev
+
+
+@dataclasses.dataclass
+class ReverseState:
+    """The device buffers one reverse run reads and writes: ``x`` (B, L, F)
+    the current sample, updated in place; ``z`` (n, B, L, F) each step's
+    noise; ``i`` (1,) int64 the next step's index; ``t`` and ``t_prev``
+    (n,) int64 each step's timestep and target (t_prev < 0: to x0);
+    ``traj`` (n, B, L, F) every step's output, or None."""
+
+    x: torch.Tensor
+    z: torch.Tensor
+    i: torch.Tensor
+    t: torch.Tensor
+    t_prev: torch.Tensor
+    traj: torch.Tensor | None = None
 
 
 class GaussianAngleDiffusion:
@@ -110,23 +131,76 @@ class GaussianAngleDiffusion:
         return wrap_angle(torch.sqrt(a_prev) * x0_pred + dir_term
                           + keep * sigma * z)
 
-    def _loop(self, steps, denoise_fn, x_init, generator, noise,
-              return_trajectory, update):
-        x = x_init
-        b = x.shape[0]
-        traj = (torch.empty((len(steps),) + tuple(x.shape), dtype=x.dtype,
-                            device=x.device) if return_trajectory else None)
-        for i, step in enumerate(steps):
-            t_vec = torch.full((b,), int(step[0]), dtype=torch.long,
-                               device=x.device)
-            eps_hat = denoise_fn(t_vec, x)
-            z = (noise[i] if noise is not None else
-                 torch.randn(x.shape, generator=generator, device=x.device,
-                             dtype=x.dtype))
-            x = update(x, eps_hat, t_vec, step, z)
-            if traj is not None:
-                traj[i] = x
-        return x, traj
+    def ladder(self, sampler: str, *, step: int = 1, n_steps: int = 50):
+        """(t, t_prev) int64 arrays of a reverse run: DDPM over
+        reversed(range(0, T, step)) (t_prev = t - step), DDIM over
+        ``ddim_timesteps(T, n_steps)``."""
+        if sampler == "ddim":
+            return ddim_timesteps(self.timesteps, n_steps)
+        if sampler != "ddpm":
+            raise ValueError(f"unknown sampler {sampler!r}")
+        ts = np.arange(0, self.timesteps, step, dtype=np.int64)[::-1].copy()
+        return ts, ts - step
+
+    def reverse_step(self, denoise_fn: Callable, st: ReverseState, *,
+                     ddim: bool, eta: float = 1.0) -> None:
+        """One reverse step at index ``st.i``: eps_hat = denoise_fn(t_vec,
+        x), then ``p_step`` (or ``ddim_step``) with that step's noise,
+        written into ``st.x`` (and ``st.traj[i]``); ``st.i`` advances by
+        one. Nothing here reads a value back to the host, so the call can
+        be captured as a CUDA graph."""
+        b = st.x.shape[0]
+        t_vec = st.t.index_select(0, st.i).expand(b)
+        eps_hat = denoise_fn(t_vec, st.x)
+        z = st.z.index_select(0, st.i)[0]
+        if ddim:
+            x = self.ddim_step(st.x, eps_hat, t_vec,
+                               st.t_prev.index_select(0, st.i).expand(b),
+                               eta, z)
+        else:
+            x = self.p_step(st.x, eps_hat, t_vec, z)
+        st.x.copy_(x)
+        if st.traj is not None:
+            st.traj.index_copy_(0, st.i, x[None])
+        st.i += 1
+
+    def reverse_state(self, x_init, z, ts, t_prev,
+                      return_trajectory: bool) -> ReverseState:
+        """A ReverseState on x_init's device holding a copy of x_init, the
+        noise and the ladder, at step 0."""
+        dev = x_init.device
+
+        def table(v):
+            return torch.as_tensor(np.asarray(v, np.int64), device=dev)
+
+        return ReverseState(
+            x=x_init.clone(), z=z.to(device=dev, dtype=x_init.dtype),
+            i=torch.zeros(1, dtype=torch.long, device=dev), t=table(ts),
+            t_prev=table(t_prev),
+            traj=(torch.empty((len(ts),) + tuple(x_init.shape),
+                              dtype=x_init.dtype, device=dev)
+                  if return_trajectory else None))
+
+    def draw_noise(self, shape, n_steps: int, *, generator, device,
+                   dtype=torch.float32):
+        """A run's draws from ``generator``, in this order: the wrapped
+        x_init (B, L, F), then every step's z (n_steps, B, L, F)."""
+        x_init = sample_wrapped_noise(shape, generator=generator,
+                                      device=device, dtype=dtype)
+        z = torch.randn((n_steps,) + tuple(shape), generator=generator,
+                        device=device, dtype=dtype)
+        return x_init, z
+
+    def _run(self, denoise_fn, x_init, ts, t_prev, generator, noise,
+             return_trajectory, ddim, eta=1.0):
+        if noise is None:
+            noise = torch.randn((len(ts),) + tuple(x_init.shape),
+                                generator=generator, device=x_init.device,
+                                dtype=x_init.dtype)
+        st = self.reverse_state(x_init, noise, ts, t_prev, return_trajectory)
+        for _ in range(len(ts)):
+            self.reverse_step(denoise_fn, st, ddim=ddim, eta=eta)
+        return st.x, st.traj
 
     def sample_loop(self, denoise_fn: Callable, x_init, *,
                     generator: torch.Generator | None = None, noise=None,
@@ -134,25 +208,18 @@ class GaussianAngleDiffusion:
         """Ancestral sampling over reversed(range(0, T, step)).
 
         denoise_fn: (t_vec, x_t) -> eps_hat. noise: optional (n, B, L, F)
-        per-step z's in place of draws from ``generator``. Returns the
-        final sample and, if asked, the (n, B, L, F) trajectory (index 0 is
-        t = T-1)."""
-        steps = [(t,) for t in reversed(range(0, self.timesteps, step))]
-        return self._loop(steps, denoise_fn, x_init, generator, noise,
-                          return_trajectory,
-                          lambda x, eps, t, _, z: self.p_step(x, eps, t, z))
+        per-step z's in place of draws from ``generator`` (all n drawn
+        before the first step). Returns the final sample and, if asked,
+        the (n, B, L, F) trajectory (index 0 is t = T-1)."""
+        ts, t_prev = self.ladder("ddpm", step=step)
+        return self._run(denoise_fn, x_init, ts, t_prev, generator, noise,
+                         return_trajectory, ddim=False)
 
     def sample_loop_ddim(self, denoise_fn: Callable, x_init, *,
                          generator: torch.Generator | None = None,
                          noise=None, n_steps: int = 50, eta: float = 1.0,
                          return_trajectory: bool = False):
         """DDIM over ``ddim_timesteps(T, n_steps)`` (n_steps forwards)."""
-        ts, t_prev = ddim_timesteps(self.timesteps, n_steps)
-        steps = list(zip(ts.tolist(), t_prev.tolist()))
-
-        def update(x, eps, t_vec, pair, z):
-            tp_vec = torch.full_like(t_vec, pair[1])
-            return self.ddim_step(x, eps, t_vec, tp_vec, eta, z)
-
-        return self._loop(steps, denoise_fn, x_init, generator, noise,
-                          return_trajectory, update)
+        ts, t_prev = self.ladder("ddim", n_steps=n_steps)
+        return self._run(denoise_fn, x_init, ts, t_prev, generator, noise,
+                         return_trajectory, ddim=True, eta=eta)

@@ -53,7 +53,10 @@ def guided_combine(pred_2b, guidance_scale):
     """Split a 2B prediction (conditional half first) and combine.
 
     ``guidance_scale``: a scalar or a per-example (B,) vector, as a number
-    or a tensor. As in the JAX package, w is float32 and the difference is
+    or a tensor. A float32 tensor on the prediction's device is used as it
+    is; anything else is copied there first, a host-to-device copy that a
+    CUDA graph cannot capture (the captured samplers pass a (B,) device
+    buffer). As in the JAX package, w is float32 and the difference is
     taken in the prediction's dtype before it is scaled."""
     cond, uncond = pred_2b.chunk(2, dim=0)
     w = torch.as_tensor(guidance_scale, dtype=torch.float32,

@@ -104,9 +104,11 @@ def load_library() -> ctypes.CDLL:
         f, u = ctypes.c_float, ctypes.c_uint32
         lib.e3d_attention_train.argtypes = [p] * 8 + [i] * 5 + [u, f, i, p]
         lib.e3d_attention_train.restype = i
-        lib.e3d_attention_backward.argtypes = ([p] * 13 + [i] * 5
+        lib.e3d_attention_backward.argtypes = ([p] * 14 + [i] * 6
                                                + [u, f, i, p])
         lib.e3d_attention_backward.restype = i
+        lib.e3d_attention_backward_occupancy.argtypes = [i, i, i, p]
+        lib.e3d_attention_backward_occupancy.restype = i
         lib.e3d_layernorm_backward.argtypes = [p] * 9 + [i, i, f, i, i, p]
         lib.e3d_layernorm_backward.restype = i
         lib.e3d_dropout_keep.argtypes = [p, i, i, i, i, u, p, p]

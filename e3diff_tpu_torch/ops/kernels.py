@@ -408,6 +408,24 @@ def fused_attention_train(q, k, v, mask_add, rel_table=None, seed=None,
 fused_attention_train.launches = 0
 
 
+@functools.cache
+def _bwd_blocks_per_sm(lq: int, lk: int) -> int:
+    per_sm = ctypes.c_int(0)
+    code = _build.load_library().e3d_attention_backward_occupancy(
+        lq, lk, 1, ctypes.byref(per_sm))
+    _raise_on_error("attention_backward", code)
+    return max(per_sm.value, 1)
+
+
+def _bwd_group(device, b: int, lq: int, lk: int, num_heads: int) -> int:
+    """Batch rows per block of the bf16 backward with a table: B spread
+    over the groups that, times the heads, fill the card once (each block
+    sums its rows' table gradient in order into one slice)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    groups = min(b, -(-_bwd_blocks_per_sm(lq, lk) * sms // num_heads))
+    return -(-b // groups)
+
+
 def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
                        seed=None, dropout_p: float = 0.0, *, num_heads: int,
                        max_pos: int):
@@ -415,8 +433,8 @@ def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
     q's type) and the distance table (f32, None without a table), given
     the output's gradient ``dout``, the forward's row log-sum-exp and its
     dropout seed (the kernel redraws the same keep bits). On the card the
-    table gradient is summed over (b, h) with atomics: its last bits
-    change from run to run."""
+    table gradient is summed over (b, h) in a fixed order (per-block
+    slices, then a sum kernel): the same bits on every run."""
     b, lq, _ = q.shape
     lk = k.shape[1]
     name = "attention_backward"
@@ -439,18 +457,25 @@ def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
         _check_aligned16(name, q, k, v, dout,
                          *([rel_table] if rel_table is not None else []))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dtable = (None if rel_table is None else
-              torch.zeros(rel_table.shape, dtype=torch.float32,
-                          device=q.device))
+    dtable = dtable_part = None
+    group = 1
+    if rel_table is not None:
+        if q.dtype == torch.bfloat16:
+            group = _bwd_group(q.device, b, lq, lk, num_heads)
+        dtable = torch.zeros(rel_table.shape, dtype=torch.float32,
+                             device=q.device)
+        dtable_part = torch.empty(
+            (-(-b // group), num_heads, lq + lk - 1, KERNEL_HEAD_DIM),
+            dtype=torch.float32, device=q.device)
     delta = torch.empty((b, num_heads, lq), dtype=torch.float32,
                         device=q.device)
     lib = _build.load_library()
     code = lib.e3d_attention_backward(
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(mask_add),
         _ptr(rel_table), _ptr(seed), _ptr(lse), _ptr(delta), _ptr(dq),
-        _ptr(dk), _ptr(dv), _ptr(dtable), b, lq, lk, num_heads, max_pos,
-        dropout_threshold(dropout_p), drop_scale(dropout_p),
-        _DTYPE_CODE[q.dtype], _stream())
+        _ptr(dk), _ptr(dv), _ptr(dtable), _ptr(dtable_part), b, lq, lk,
+        num_heads, max_pos, group, dropout_threshold(dropout_p),
+        drop_scale(dropout_p), _DTYPE_CODE[q.dtype], _stream())
     _raise_on_error(name, code)
     attention_backward.launches += 1
     return dq, dk, dv, dtable

@@ -1,0 +1,81 @@
+"""CUDA graphs of the samplers' calls (they stand for the bodies of the
+JAX package's jitted ``lax.scan`` samplers, e3diff_tpu/sampling/
+structure.py and sequence.py).
+
+A ``CapturedCall`` captures one call -- a pocket encoding, one reverse
+step, the last sequence forward -- over static device buffers, by the
+standard recipe: warm the call up eagerly on a side stream (this also
+builds the kernels and sets their shared-memory opt-in before any
+capture), then capture it on that stream into the caller's memory pool
+with ``capture_error_mode="thread_local"``, so that other threads (the
+HTTP server's) may keep running while this one captures. The side stream
+is PyTorch's one capture stream (``torch.cuda.graph``'s default), for
+every capture of the process: cuBLAS keeps a workspace for each stream
+it has run on, for the life of the process, so a new stream per capture
+would hold one more workspace per capture. The caller copies its
+inputs into the static buffers and replays. A call that cannot be captured
+raises; nothing falls back to eager launches.
+
+The kernels' launch counters (ops/kernels.py) move when a kernel is
+launched from Python: in the warm-up and at capture, never on replay. A
+capture records its own launches by kernel name in ``launches``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from e3diff_tpu_torch.ops import kernels
+
+WARMUP_CALLS = 2
+
+
+def _launch_counts() -> dict[str, int]:
+    return {k.__name__: k.launches for k in kernels.KERNELS}
+
+
+class CapturedCall:
+    """``fn`` captured once as a CUDA graph; ``replay()`` reruns its
+    device work. ``out`` is what ``fn`` returned at capture (tensors in the
+    graph's pool, rewritten by every replay). ``reset`` runs before each
+    warm-up call, to put the buffers ``fn`` advances (a step index) back
+    in range."""
+
+    def __init__(self, fn: Callable, *, pool, reset: Callable | None = None):
+        self.graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(self.graph, pool=pool,
+                                   capture_error_mode="thread_local")
+        side = capture.capture_stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.no_grad():
+            for _ in range(WARMUP_CALLS):
+                if reset is not None:
+                    reset()
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        before = _launch_counts()
+        with torch.no_grad(), capture:
+            self.out = fn()
+        after = _launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def close(self) -> None:
+        """Free the graph and what it returned."""
+        self.graph.reset()
+        self.out = None
+
+
+def fill_static(buf: torch.Tensor, value) -> None:
+    """Copy ``value`` (a tensor anywhere, a numpy array or a number,
+    broadcast to ``buf``'s shape) into a static buffer; from the host,
+    through page-locked memory with an asynchronous copy."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.as_tensor(value)
+    if value.device.type == "cpu" and buf.device.type == "cuda":
+        value = value.to(buf.dtype).expand_as(buf).contiguous().pin_memory()
+    buf.copy_(value, non_blocking=True)

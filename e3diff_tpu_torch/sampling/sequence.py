@@ -2,12 +2,16 @@
 (counterpart of e3diff_tpu/sampling/sequence.py; sequence_model/
 sample.py:181-258 and sample_by_generated_angles.py).
 
-Per batch: draw uniform one-hot noise, run the D3PM reverse loop as a
-Python loop of full SequenceDenoiser forwards (the receptor fuse takes the
-timestep, so nothing is computed once per batch), argmax the final logits,
-decode them to amino-acid strings and score them against the true
-sequence. ``generated_angles`` replaces the native ligand backbone angles
-with the structure sampler's (the end-to-end pipeline).
+Per batch: draw the uniform one-hot noise and every step's Gumbel noise at
+once, run the D3PM reverse loop of full SequenceDenoiser forwards (the
+receptor fuse takes the timestep, so nothing is computed once per batch),
+argmax the final logits, decode them to amino-acid strings and score them
+against the true sequence. On the card the reverse step and the final
+forward are CUDA graphs captured once per bucket and replayed (as in
+sampling/structure.py); on the CPU, or when asked (``eager=True``), the
+same step runs as a Python loop, on the same draws. ``generated_angles``
+replaces the native ligand backbone angles with the structure sampler's
+(the end-to-end pipeline).
 """
 
 from __future__ import annotations
@@ -23,62 +27,168 @@ from e3diff_tpu_torch.diffusion.guidance import (
     concat_cond_uncond,
     guided_combine,
 )
+from e3diff_tpu_torch.sampling.graphs import CapturedCall, fill_static
 from e3diff_tpu_torch.utils.device import resolve_device
+from e3diff_tpu_torch.utils.graph_cache import GraphCache
 
 COND_FIELDS = ("ligand_angles", "ligand_attn_mask", "receptor_seq",
                "receptor_angles", "receptor_attn_mask")
 
 
+def make_denoise_fn(model, batch: dict, *, guided: bool, scale=1.0):
+    """denoise_fn(s (B, 1), x one-hot) -> logits, one full forward per
+    call on the batch's COND_FIELDS; when guided, over the 2B conditional
+    ‖ null batch (the null branch drops the pocket and the ligand angles,
+    as training's conditioning dropout does), combined with ``scale``."""
+    cond = {f: batch[f] for f in COND_FIELDS}
+    if guided:
+        cond = concat_cond_uncond(cond, drop_ligand_angles=True)
+
+    def denoise_fn(s_arr, x):
+        if guided:
+            s_arr = torch.cat([s_arr, s_arr])
+            x = torch.cat([x, x])
+        logits = model(s_arr, x, cond["ligand_angles"],
+                       cond["ligand_attn_mask"], cond["receptor_seq"],
+                       cond["receptor_angles"], cond["receptor_attn_mask"])
+        return guided_combine(logits, scale) if guided else logits
+
+    return denoise_fn
+
+
+class SequenceProgram:
+    """One bucket's sequence sampler on the card: the guided batch's
+    conditioning (``prepare``, None unguided: the forward then reads the
+    batch's buffers as they are), one reverse step and the final s = 0
+    forward, each a ``CapturedCall`` over static buffers (the batch, the
+    (B,) guidance scale, the ``D3PMState``)."""
+
+    def __init__(self, model, d3pm: D3PMDiffusion, batch: dict, *,
+                 diverse: bool, n_steps: int | None, guided: bool, pool):
+        dev = next(model.parameters()).device
+        self.inputs = {k: torch.zeros(batch[k].shape, dtype=batch[k].dtype,
+                                      device=dev) for k in COND_FIELDS}
+        lig = torch.zeros(batch["ligand_seq"].shape,
+                          dtype=batch["ligand_seq"].dtype, device=dev)
+        self.scale = (torch.ones(lig.shape[0], device=dev) if guided
+                      else None)
+        n = len(d3pm.step_pairs(n_steps))
+        self.state = d3pm.reverse_state(
+            lig, torch.zeros((n,) + tuple(lig.shape)) if diverse else None,
+            n_steps)
+        self.prepare = None
+        if guided:
+            self.prepare = CapturedCall(
+                lambda: make_denoise_fn(model, self.inputs, guided=True,
+                                        scale=self.scale), pool=pool)
+            self.prepare.replay()
+            denoise_fn = self.prepare.out
+        else:
+            denoise_fn = make_denoise_fn(model, self.inputs, guided=False)
+        self.step = CapturedCall(
+            lambda: d3pm.reverse_step(denoise_fn, self.state,
+                                      diverse=diverse),
+            pool=pool, reset=self.state.i.zero_)
+        self.final = CapturedCall(
+            lambda: d3pm.final_logits(denoise_fn, self.state.x), pool=pool)
+        self.n_steps = n
+
+    def run(self, batch: dict, x_init, gumbel, scale):
+        """Copy the batch, the scale and the draws into the static buffers,
+        replay the steps and the final forward; returns a copy of the final
+        logits."""
+        for k, buf in self.inputs.items():
+            fill_static(buf, batch[k])
+        if self.scale is not None:
+            fill_static(self.scale, scale)
+        st = self.state
+        fill_static(st.x, x_init)
+        if st.gumbel is not None:
+            fill_static(st.gumbel, gumbel)
+        st.i.zero_()
+        if self.prepare is not None:
+            self.prepare.replay()
+        for _ in range(self.n_steps):
+            self.step.replay()
+        self.final.replay()
+        return self.final.out.clone()
+
+    def close(self) -> None:
+        for call in (self.prepare, self.step, self.final):
+            if call is not None:
+                call.close()
+        self.inputs = self.scale = self.state = None
+
+
 def make_sequence_sampler(model, d3pm: D3PMDiffusion, *, diverse: bool = True,
                           n_steps: int | None = None, guidance_scale=1.0,
-                          guided: bool | None = None):
+                          guided: bool | None = None,
+                          cache: GraphCache | None = None,
+                          eager: bool = False):
     """Returns run(batch, generator=None, noise=None, scale=None) -> final
     logits (B, L, K).
 
-    batch: dict of tensors on the model's device (ligand_seq for the
-    shape, plus COND_FIELDS). generator: the device generator that x_init
-    and then each step's Gumbel noise are drawn from; or noise =
-    {"x_init": (B, L, K) one-hots, "gumbel": (n_pairs, B, L, K)} to inject
-    the draws ("gumbel" may be left out when ``diverse`` is False).
+    batch: dict of tensors (ligand_seq for the shape, plus COND_FIELDS), on
+    the model's device or on the host. generator: the device generator
+    that x_init and then every step's Gumbel noise are drawn from, before
+    the first step; or noise = {"x_init": (B, L, K) one-hots, "gumbel":
+    (n_pairs, B, L, K)} to inject the draws ("gumbel" may be left out when
+    ``diverse`` is False).
 
     A guidance scale other than 1 (or guided=True) runs classifier-free
-    guidance on the logits as one 2B forward per step; the null branch
-    drops the pocket and the ligand angles, as training's conditioning
-    dropout does. The scale, a number or a (B,) vector, may also be given
-    per call."""
+    guidance on the logits as one 2B forward per step. The scale, a number
+    or a (B,) vector, may also be given per call.
+
+    On the card each bucket's program is captured at its first call into
+    ``cache`` (a new ``GraphCache`` when None) and replayed after;
+    ``eager=True`` runs the Python loop there instead (the graphs'
+    oracle). ``run.program(batch)`` returns the bucket's program,
+    capturing it if needed."""
     if guided is None:
         guided = not (np.ndim(guidance_scale) == 0
                       and float(guidance_scale) == 1.0)
+    device = next(model.parameters()).device
+    graphs = device.type == "cuda" and not eager
+    if graphs and cache is None:
+        cache = GraphCache()
+    flags = ("sequence", diverse, n_steps, guided)
+
+    def program(batch) -> SequenceProgram:
+        key = (id(model), id(d3pm), *flags,
+               *((k, tuple(batch[k].shape), str(batch[k].dtype))
+                 for k in COND_FIELDS + ("ligand_seq",)))
+        prog = cache.get(key, model, d3pm)
+        if prog is None:
+            prog = SequenceProgram(model, d3pm, batch, diverse=diverse,
+                                   n_steps=n_steps, guided=guided,
+                                   pool=cache.pool())
+            cache.put(key, prog, model, d3pm)
+        return prog
 
     @torch.no_grad()
     def run(batch, generator=None, noise=None, scale=None):
         if noise is None and generator is None:
             raise ValueError("pass a generator or injected noise")
         lig = batch["ligand_seq"]
-        b, length, _ = lig.shape
-        x_init = (noise["x_init"] if noise is not None else
-                  d3pm.init_noise(b, length, generator=generator,
-                                  device=lig.device, dtype=lig.dtype))
-        cond = {f: batch[f] for f in COND_FIELDS}
-        if guided:
-            cond = concat_cond_uncond(cond, drop_ligand_angles=True)
+        if noise is None:
+            x_init, gumbel = d3pm.draw_noise(
+                lig.shape, n_steps, generator=generator, device=device,
+                dtype=lig.dtype, diverse=diverse)
+        else:
+            x_init, gumbel = noise["x_init"], noise.get("gumbel")
+            if diverse and gumbel is None:
+                raise ValueError("diverse sampling needs noise['gumbel']")
         w = guidance_scale if scale is None else scale
-
-        def denoise_fn(s_arr, x):
-            if guided:
-                s_arr = torch.cat([s_arr, s_arr])
-                x = torch.cat([x, x])
-            logits = model(s_arr, x, cond["ligand_angles"],
-                           cond["ligand_attn_mask"], cond["receptor_seq"],
-                           cond["receptor_angles"],
-                           cond["receptor_attn_mask"])
-            return guided_combine(logits, w) if guided else logits
-
+        if graphs:
+            return program(batch).run(batch, x_init, gumbel, w)
+        tbatch = {k: batch[k].to(device) for k in COND_FIELDS}
         return d3pm.sample_loop(
-            denoise_fn, x_init, generator=generator,
-            gumbel=None if noise is None else noise.get("gumbel"),
+            make_denoise_fn(model, tbatch, guided=guided, scale=w),
+            x_init.to(device=device, dtype=lig.dtype),
+            gumbel=None if gumbel is None else gumbel.to(device),
             diverse=diverse, n_steps=n_steps)
 
+    run.program = program
     return run
 
 

@@ -1,11 +1,17 @@
 """Batched structure (angle) sampling (counterpart of
 e3diff_tpu/sampling/structure.py).
 
-Per batch: draw wrapped-Gaussian initial noise, encode the pocket and
-project every decoder layer's cross-attention K/V once, then run the
-reverse steps (DDPM or DDIM) as a Python loop of ``decode`` calls, and trim
-each sample to its true ligand length. Reference quirk Q5 (only the first
-batch is sampled, sample.py:237) is ``first_batch_only=True`` by default.
+Per batch: draw the wrapped-Gaussian initial noise and every step's noise
+at once, encode the pocket and project every decoder layer's
+cross-attention K/V once, then run the reverse steps (DDPM or DDIM), and
+trim each sample to its true ligand length. On the card the encoding and
+one reverse step are CUDA graphs captured once per bucket (batch, ligand
+and receptor shape, dtypes, sampler flags) and replayed, the host loop
+being ``n`` replays; the programs live in a bounded ``GraphCache``. On the
+CPU, or when asked (``eager=True``), the same step runs as a Python loop.
+Both paths read the same draws, so one seed gives the same samples either
+way. Reference quirk Q5 (only the first batch is sampled, sample.py:237)
+is ``first_batch_only=True`` by default.
 """
 
 from __future__ import annotations
@@ -16,12 +22,14 @@ import numpy as np
 import torch
 
 from e3diff_tpu_torch.data.dataset import strip_meta
-from e3diff_tpu_torch.diffusion.gaussian import (
-    GaussianAngleDiffusion,
-    sample_wrapped_noise,
-)
+from e3diff_tpu_torch.diffusion.gaussian import GaussianAngleDiffusion
 from e3diff_tpu_torch.diffusion.guidance import guided_combine, null_receptor
+from e3diff_tpu_torch.sampling.graphs import CapturedCall, fill_static
 from e3diff_tpu_torch.utils.device import resolve_device
+from e3diff_tpu_torch.utils.graph_cache import GraphCache
+
+BATCH_KEYS = ("ligand_angles", "ligand_attn_mask", "receptor_seq",
+              "receptor_angles", "receptor_attn_mask")
 
 
 def make_denoise_fn(model, batch: dict, *, guided: bool, scale=1.0):
@@ -50,51 +58,135 @@ def make_denoise_fn(model, batch: dict, *, guided: bool, scale=1.0):
     return denoise_fn
 
 
+class StructureProgram:
+    """One bucket's structure sampler on the card: the pocket encoding and
+    one reverse step, each a ``CapturedCall`` over static buffers (the
+    batch, the (B,) guidance scale, the ``ReverseState``)."""
+
+    def __init__(self, model, diffusion: GaussianAngleDiffusion,
+                 batch: dict, *, ts, t_prev, ddim: bool, eta: float,
+                 guided: bool, return_trajectory: bool, pool):
+        dev = next(model.parameters()).device
+        self.inputs = {k: torch.zeros(batch[k].shape, dtype=batch[k].dtype,
+                                      device=dev) for k in BATCH_KEYS}
+        lig = self.inputs["ligand_angles"]
+        self.scale = (torch.ones(lig.shape[0], device=dev) if guided
+                      else None)
+        self.state = diffusion.reverse_state(
+            lig, torch.zeros((len(ts),) + tuple(lig.shape)), ts, t_prev,
+            return_trajectory)
+        self.encode = CapturedCall(
+            lambda: make_denoise_fn(model, self.inputs, guided=guided,
+                                    scale=self.scale), pool=pool)
+        self.encode.replay()  # the step's warm-up reads the encoding
+        denoise_fn = self.encode.out
+        self.step = CapturedCall(
+            lambda: diffusion.reverse_step(denoise_fn, self.state, ddim=ddim,
+                                           eta=eta),
+            pool=pool, reset=self.state.i.zero_)
+        self.n_steps = len(ts)
+
+    def run(self, batch: dict, x_init, z, scale):
+        """Copy the batch, the scale and the draws into the static buffers,
+        replay the encoding and n steps; returns copies of the final
+        sample and of the trajectory (or None)."""
+        for k, buf in self.inputs.items():
+            fill_static(buf, batch[k])
+        if self.scale is not None:
+            fill_static(self.scale, scale)
+        st = self.state
+        fill_static(st.x, x_init)
+        fill_static(st.z, z)
+        st.i.zero_()
+        self.encode.replay()
+        for _ in range(self.n_steps):
+            self.step.replay()
+        return st.x.clone(), None if st.traj is None else st.traj.clone()
+
+    def close(self) -> None:
+        self.encode.close()
+        self.step.close()
+        self.inputs = self.scale = self.state = None
+
+
 def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
                            step: int = 1, return_trajectory: bool = True,
                            sampler: str = "ddpm", ddim_steps: int = 50,
                            ddim_eta: float = 1.0, guidance_scale=1.0,
-                           guided: bool | None = None):
+                           guided: bool | None = None,
+                           cache: GraphCache | None = None,
+                           eager: bool = False):
     """Returns run(batch, generator=None, noise=None, scale=None) ->
     (final, trajectory or None).
 
-    batch: dict of tensors on the model's device (ligand_angles,
-    ligand_attn_mask, receptor_seq, receptor_angles, receptor_attn_mask).
-    generator: the device generator the noise is drawn from, x_init first
-    and then one z per step; or noise = {"x_init": (B, L, F),
+    batch: dict of tensors (ligand_angles, ligand_attn_mask, receptor_seq,
+    receptor_angles, receptor_attn_mask), on the model's device or on the
+    host (pinned memory makes the copies asynchronous). generator: the
+    device generator the noise is drawn from before the first step, x_init
+    first and then every step's z; or noise = {"x_init": (B, L, F),
     "z": (n_steps, B, L, F)} to inject the draws instead.
 
     sampler "ddpm" is the reference's ancestral loop (T forwards, or T/step
     with the lossy stride); "ddim" runs ddim_steps forwards. A guidance
     scale other than 1 (or guided=True) runs classifier-free guidance as
     one 2B forward per step; the scale, a number or a (B,) vector, may
-    also be given per call."""
+    also be given per call.
+
+    On the card each bucket's program is captured at its first call into
+    ``cache`` (a new ``GraphCache`` when None) and replayed after;
+    ``eager=True`` runs the Python loop there instead (the graphs'
+    oracle). ``run.program(batch)`` returns the bucket's program,
+    capturing it if needed."""
     if sampler not in ("ddpm", "ddim"):
         raise ValueError(f"unknown sampler {sampler!r}")
     if guided is None:
         guided = not (np.ndim(guidance_scale) == 0
                       and float(guidance_scale) == 1.0)
+    ts, t_prev = diffusion.ladder(sampler, step=step, n_steps=ddim_steps)
+    device = next(model.parameters()).device
+    graphs = device.type == "cuda" and not eager
+    if graphs and cache is None:
+        cache = GraphCache()
+    flags = ("structure", step, return_trajectory, sampler, ddim_steps,
+             float(ddim_eta), guided)
+
+    def program(batch) -> StructureProgram:
+        key = (id(model), id(diffusion), *flags,
+               *((k, tuple(batch[k].shape), str(batch[k].dtype))
+                 for k in BATCH_KEYS))
+        prog = cache.get(key, model, diffusion)
+        if prog is None:
+            prog = StructureProgram(
+                model, diffusion, batch, ts=ts, t_prev=t_prev,
+                ddim=sampler == "ddim", eta=ddim_eta, guided=guided,
+                return_trajectory=return_trajectory, pool=cache.pool())
+            cache.put(key, prog, model, diffusion)
+        return prog
 
     def run(batch, generator=None, noise=None, scale=None):
         if noise is None and generator is None:
             raise ValueError("pass a generator or injected noise")
         lig = batch["ligand_angles"]
-        x_init = (noise["x_init"] if noise is not None else
-                  sample_wrapped_noise(lig.shape, generator=generator,
-                                       device=lig.device, dtype=lig.dtype))
-        denoise_fn = make_denoise_fn(
-            model, batch, guided=guided,
-            scale=guidance_scale if scale is None else scale)
-        z = None if noise is None else noise["z"]
+        if noise is None:
+            x_init, z = diffusion.draw_noise(
+                lig.shape, len(ts), generator=generator, device=device,
+                dtype=lig.dtype)
+        else:
+            x_init, z = noise["x_init"], noise["z"]
+        w = guidance_scale if scale is None else scale
+        if graphs:
+            return program(batch).run(batch, x_init, z, w)
+        tbatch = {k: batch[k].to(device) for k in BATCH_KEYS}
+        denoise_fn = make_denoise_fn(model, tbatch, guided=guided, scale=w)
+        kw = dict(noise=z, return_trajectory=return_trajectory)
         if sampler == "ddim":
             return diffusion.sample_loop_ddim(
-                denoise_fn, x_init, generator=generator, noise=z,
-                n_steps=ddim_steps, eta=ddim_eta,
-                return_trajectory=return_trajectory)
-        return diffusion.sample_loop(
-            denoise_fn, x_init, generator=generator, noise=z, step=step,
-            return_trajectory=return_trajectory)
+                denoise_fn, x_init.to(device), n_steps=ddim_steps,
+                eta=ddim_eta, **kw)
+        return diffusion.sample_loop(denoise_fn, x_init.to(device),
+                                     step=step, **kw)
 
+    run.program = program
     return run
 
 

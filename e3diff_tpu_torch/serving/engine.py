@@ -15,7 +15,13 @@ Requests are padded into slots, never reshaped. Shapes are chosen per
 request along three bucket axes, the smallest configured bucket that
 fits: ligand length, receptor length and batch size (a partial batch pads
 to a small batch bucket; its dead slots carry all-zero attention masks).
-One lock serialises the device work of concurrent callers.
+On the card each bucket runs two captured programs, the structure
+sampler's and the sequence sampler's (CUDA graphs, sampling/graphs.py),
+from one bounded ``GraphCache`` of the engine's; ``warmup`` captures them.
+A batch's features go to the programs' static buffers as asynchronous
+copies from page-locked host memory. One lock serialises the device work
+of concurrent callers: the replays, and the reading back of each batch's
+results before the next batch replays.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from e3diff_tpu_torch.geometry.pdb import backbone_pdb_text
 from e3diff_tpu_torch.sampling.sequence import make_sequence_sampler
 from e3diff_tpu_torch.sampling.structure import make_structure_sampler
 from e3diff_tpu_torch.utils.device import resolve_device
+from e3diff_tpu_torch.utils.graph_cache import GraphCache
 
 
 @dataclasses.dataclass
@@ -138,15 +145,18 @@ class DesignEngine:
         self.seq_guidance_scale = float(seq_guidance_scale)
         self._struct_guided = enable_cfg or self.guidance_scale != 1.0
         self._seq_guided = enable_cfg or self.seq_guidance_scale != 1.0
+        # both samplers' captured programs, one of each per bucket
+        self.graphs = GraphCache()
         self._struct_run = make_structure_sampler(
             structure_model, structure_diffusion, step=step,
             return_trajectory=False, sampler=sampler,
             ddim_steps=ddim_steps, ddim_eta=ddim_eta,
-            guidance_scale=guidance_scale, guided=self._struct_guided)
+            guidance_scale=guidance_scale, guided=self._struct_guided,
+            cache=self.graphs)
         self._seq_run = make_sequence_sampler(
             sequence_model, sequence_d3pm, diverse=diverse,
             n_steps=seq_skip_steps, guidance_scale=seq_guidance_scale,
-            guided=self._seq_guided)
+            guided=self._seq_guided, cache=self.graphs)
         # one device, callers on many threads: one batch at a time
         self._device_lock = threading.Lock()
         self._warm = False
@@ -290,8 +300,10 @@ class DesignEngine:
                shapes=None) -> None:
         """Run every (receptor, ligand, batch) bucket combination once on
         dummy requests, or only the triples in ``shapes``: the first run
-        builds the kernels and allocates each shape's memory. One line per
-        combination, with its seconds, goes to stderr."""
+        builds the kernels and, on the card, captures the bucket's two
+        programs (as the JAX engine's warmup compiles); a capture that
+        fails raises. One line per combination, with its seconds, goes to
+        stderr."""
         if shapes is None:
             shapes = [(rb, b, bb) for rb in self.receptor_buckets
                       for b in self.ligand_buckets
@@ -430,9 +442,15 @@ class DesignEngine:
         w[:len(chunk)] = [s.get(slot_key, default) for s in chunk]
         return {"scale": w}
 
-    def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in batch.items() if k in self._DEVICE_KEYS}
+    def _tensors(self, batch: dict) -> dict:
+        """The batch's sampler inputs as host tensors, page-locked when the
+        engine serves on the card (the samplers copy them into their
+        static buffers asynchronously)."""
+        out = {k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in batch.items() if k in self._DEVICE_KEYS}
+        if self.device.type == "cuda":
+            out = {k: v.pin_memory() for k, v in out.items()}
+        return out
 
     def _results(self, chunk, batch, pred, angles, coords=None,
                  want_pdb=None) -> list[DesignResult]:
@@ -462,7 +480,7 @@ class DesignEngine:
         same-bucket chunk; the host reads each result once per batch."""
         batch = self._stack_slots(chunk)
         bsz = len(batch["ligand_attn_mask"])
-        tbatch = self._to_device(batch)
+        tbatch = self._tensors(batch)
         struct_kw = self._scale_kwargs(chunk, bsz, self._struct_guided,
                                        "_guidance_scale", self.guidance_scale)
         seq_kw = self._scale_kwargs(chunk, bsz, self._seq_guided,
@@ -488,7 +506,7 @@ class DesignEngine:
             chunk, len(batch["ligand_attn_mask"]), self._seq_guided,
             "_seq_guidance_scale", self.seq_guidance_scale)
         with self._device_lock:
-            logits = self._seq_run(self._to_device(batch), generator,
+            logits = self._seq_run(self._tensors(batch), generator,
                                    noise=noise, **seq_kw)
             pred = logits.float().argmax(-1).cpu().numpy()
         return self._results(chunk, batch, pred, batch["ligand_angles"])

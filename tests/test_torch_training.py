@@ -381,6 +381,69 @@ def test_sequence_loss_and_gradients_match_jax(sequence_setup, cond_dropout):
     assert errs[worst] <= 1e-4, (worst, errs[worst])
 
 
+def test_sequence_grad_norm_with_every_pocket_dropped_matches_jax():
+    """The sequence trainer's enormous grad norm under conditioning
+    dropout is the reference's arithmetic, and JAX's trainer gives the same
+    norm (within 1e-3 relative). Hidden 32, the model's own initialisation
+    (zero biases), every example's conditioning dropped: the null pocket's
+    all-zero receptor_seq makes receptor_seq_embedding's Linear put out its
+    bias, zero, and the LayerNorm after it normalises a zero vector with
+    eps 1e-12, so its rstd is 1e6 and that bias's gradient is ~1e6 times
+    the incoming one."""
+    small = dict(hidden_size=32, num_heads=4, num_layers=2,
+                 intermediate_size=64, max_position_embeddings=16,
+                 init_style="xavier_all", dropout=0.0, attention_dropout=0.0)
+    jenc, tenc = JConfig(**small), TransformerConfig(**small)
+    model = SequenceDenoiser(tenc, dataclasses.replace(
+        tenc, add_cross_attention=True), device="cpu", seed=4)
+    params = port_sequence_state_dict(
+        {k: v.detach().numpy() for k, v in model.state_dict().items()},
+        num_dec_layers=2)
+    jmodel = JSequence(jenc, dataclasses.replace(jenc,
+                                                 add_cross_attention=True))
+    batch = _batch()
+    t_int = np.array([T_SEQ, 2, 0], np.int32)
+    key = jax.random.PRNGKey(12)
+    jd = JD3PM.create(j_transitions.BlosumTransition(), T_SEQ)
+    jb = j_drop(jax.random.PRNGKey(0), 1.0,
+                {k: jnp.asarray(v) for k, v in batch.items()},
+                drop_ligand_angles=True)
+    noised = jd.apply_aa_noise(key, jb["ligand_seq"], t_int)
+    t_norm = jnp.asarray((t_int.astype(np.float32) / T_SEQ)[:, None])
+
+    def jloss(p):
+        pred = jmodel.apply({"params": p}, t_norm, noised,
+                            jb["ligand_angles"], jb["ligand_attn_mask"],
+                            jb["receptor_seq"], jb["receptor_angles"],
+                            jb["receptor_attn_mask"])
+        return j_sequence_losses(pred, noised, jb["ligand_seq"],
+                                 jb["ligand_attn_mask"])[0]
+
+    jgrads = jax.jit(jax.grad(jloss))(jax.tree.map(jnp.asarray, params))
+    want = float(optax.global_norm(jgrads))
+    want_bias = float(jnp.linalg.norm(
+        jgrads["receptor_seq_embedding"]["linear"]["bias"]))
+    trainer = SequenceTrainer(
+        model, D3PMDiffusion.create(BlosumTransition(device="cpu"), T_SEQ,
+                                    device="cpu"),
+        AdamW(dict(model.named_parameters())), cond_dropout=0.1,
+        generator=torch.Generator().manual_seed(0))
+    model.train()
+    draws = dict(t_int=torch.from_numpy(t_int).long(),
+                 gumbel=torch.from_numpy(np.array(jax.random.gumbel(
+                     key, batch["ligand_seq"].shape))),
+                 cond_drop=torch.ones(B, dtype=torch.bool))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, _ = trainer.loss(tb, **draws)
+    grads = dict(zip(trainer.optimizer.names,
+                     torch.autograd.grad(loss, trainer.optimizer.params)))
+    bias = grads["receptor_seq_embedding.linear.bias"].norm().item()
+    got = float(trainer.train_step(tb, **draws)["grad_norm"])
+    assert want > 1e8 and want_bias > 0.5 * want, (want, want_bias)
+    assert abs(got - want) <= 1e-3 * want, (got, want)
+    assert abs(bias - want_bias) <= 1e-3 * want_bias, (bias, want_bias)
+
+
 def _tiny_structure(dtype=torch.float32, **kw):
     """A 1-layer, hidden-64 StructureDenoiser with seeded weights."""
     enc = TransformerConfig(hidden_size=64, num_heads=4, num_layers=1,
