@@ -76,13 +76,29 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    /stats showing coalesced batches, p50/p95 latency, and a small-queue
    server answering 429 with Retry-After; then 20 design batches through
    more buckets than the engine's GraphCache holds, with flat
-   max_memory_allocated.
+   max_memory_allocated;
+11. structure files to evaluated designs: 64 complexes written as PDB,
+   mmCIF and gzipped PDB files (the port's NERF) with a BioLiP metadata
+   TSV (duplicate pdb_ids, a resolution >= 5); the native DSSP library
+   built by g++ from e3diff_tpu_torch/native/dssp_core.cpp (seconds
+   printed), the preprocess CLI in its own process with 4 workers loading
+   it (records, seconds, complexes/s), the C++ H-bond scan and ASA against
+   the numpy engine on 8 structures; phase 4's and phase 8's full-width
+   models saved as .pt files with config.json sidecars, then the CLIs
+   sample_structure (DDIM-25, bf16 storage), create_pdb (every PDB read
+   back by the port's reader), sample_by_generated_angles (bf16) and
+   evaluate (--geometry), each captured call with its exact launches and
+   every floating leaf stored bf16; a bf16 DesignEngine's design batch
+   beside phase 8's int8_matmul one; prune_ckpt on phase 9's run
+   directory (DesignEngine still loads its final.pt; a directory with no
+   inference artifact is refused); convert_data from a .pt corpus.
 
 The last three lines are the kernels' JSON record, the card, and
 ``{"ok": true, "device": {...}}``. The kernels' ``launches`` in the
 record sum three main paths' runs: phase 6's DDPM-1000 int8 run (its
 capture included), phase 10's server (its warmup's captures and 40
-requests) and phase 9's train steps.
+requests) and phase 9's train steps; phase 11 checks its own launches
+and adds none.
 
 Usage, from the root of a checkout:
     python3 chip_smoke.py              # what the checks above need
@@ -972,7 +988,9 @@ def main(argv=None) -> int:
                                                          model_name, gen)
         for k, n in totals.items():
             train_counts[k] += n
-    train_cli_phase(torch, kernels)
+    # the train CLIs' run directories, which phase 11 prunes
+    runs = tempfile.TemporaryDirectory(prefix="chip_smoke_runs_")
+    train_cli_phase(torch, kernels, Path(runs.name))
     print(f"  {card}")
     print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
@@ -1003,10 +1021,23 @@ def main(argv=None) -> int:
         phase("profile: structure train steps, B=64, torch.profiler")
         profile_train_steps(torch, kernels, Path(args.profile))
 
+    # 11 --------------------------------------------------------------
+    phase("11. structure files to evaluated designs: preprocess (native "
+          "DSSP), sample in bf16, PDBs, inverse folding, evaluation, "
+          "prune_ckpt, convert_data")
+    t0 = time.perf_counter()
+    flow_seconds = files_to_designs_phase(torch, kernels, model,
+                                          Path(runs.name), card,
+                                          design_seconds)
+    runs.cleanup()
+    flow_seconds["phase"] = time.perf_counter() - t0
+    print(f"  phase 11 took {flow_seconds['phase']:.1f} s")
+
     print(f"\nsampler seconds, replayed: {json.dumps(seconds)}")
     print(f"design seconds per batch: {json.dumps(design_seconds)}")
     print(f"serving: {json.dumps(serve_seconds)}")
     print(f"train steps: {json.dumps(train_timing)}")
+    print(f"files to designs, seconds: {json.dumps(flow_seconds)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
     print(card)
@@ -2530,45 +2561,46 @@ def reproducible_steps(torch, build_trainer, cfg, batch, draws, kind,
     check(not differ, f"{kind}: two runs from one seed differ in {differ}")
 
 
-def train_cli_phase(torch, kernels):
+def train_cli_phase(torch, kernels, run_root: Path):
     """Phase 9.5: both train CLIs at their presets, one epoch of synthetic
-    complexes (one train and one validation batch of 64), into a temporary
-    directory; then DesignEngine.from_checkpoints on the two final
-    artifacts serves a design batch, held to phase 8's checks."""
+    complexes (one train and one validation batch of 64), into
+    ``run_root`` (phase 11 prunes it); then DesignEngine.from_checkpoints
+    on the two final artifacts serves a design batch, held to phase 8's
+    checks."""
     from e3diff_tpu_torch.cli.train_sequence import main as train_sequence
     from e3diff_tpu_torch.cli.train_structure import main as train_structure
     from e3diff_tpu_torch.serving import DesignEngine, pocket_record
 
-    with tempfile.TemporaryDirectory() as tmp:
-        for kind, cli in (("structure", train_structure),
-                          ("sequence", train_sequence)):
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            hist = cli(["--synthetic", "--synthetic_n", str(TRAIN_B * 5 // 4),
-                        "--max_epochs", "1", "--ema_decay", "0.999",
-                        "--ckpt_dir", f"{tmp}/{kind}"])
-            secs = time.perf_counter() - t0
-            counts = launch_counts(kernels)
-            want = with_zeros(kernels, {
-                k: PER_TRAIN_STEP[kind].get(k, 0) + PER_EVAL_STEP[kind].get(k, 0)
-                for k in (*PER_TRAIN_STEP[kind], *PER_EVAL_STEP[kind])})
-            print(f"  cli train_{kind}: {secs:.1f} s including the model "
-                  f"build and the checkpoints; history {hist}; launches "
-                  f"{counts}", flush=True)
-            check(len(hist) == 1 and all(
-                math.isfinite(hist[0][k]) for k in
-                ("train_loss", "val_loss", "grad_norm")),
-                f"cli train_{kind}: history {hist}")
-            check(counts == want, f"cli train_{kind}: launches {counts} != "
-                  f"{want}")
-            for slot in ("config.json", "last.pt", "best_val_model.pt",
-                         "final.pt", "final_ema.pt", "history.json"):
-                check(Path(tmp, kind, slot).is_file(),
-                      f"cli train_{kind} wrote no {slot}")
-        eng = DesignEngine.from_checkpoints(
-            f"{tmp}/structure/final.pt", f"{tmp}/sequence/final.pt",
-            transition="blosum", device="cuda", batch_size=DESIGN_BATCH,
-            sampler="ddim", ddim_steps=DDIM_STEPS)
+    tmp = str(run_root)
+    for kind, cli in (("structure", train_structure),
+                      ("sequence", train_sequence)):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = cli(["--synthetic", "--synthetic_n", str(TRAIN_B * 5 // 4),
+                    "--max_epochs", "1", "--ema_decay", "0.999",
+                    "--ckpt_dir", f"{tmp}/{kind}"])
+        secs = time.perf_counter() - t0
+        counts = launch_counts(kernels)
+        want = with_zeros(kernels, {
+            k: PER_TRAIN_STEP[kind].get(k, 0) + PER_EVAL_STEP[kind].get(k, 0)
+            for k in (*PER_TRAIN_STEP[kind], *PER_EVAL_STEP[kind])})
+        print(f"  cli train_{kind}: {secs:.1f} s including the model "
+              f"build and the checkpoints; history {hist}; launches "
+              f"{counts}", flush=True)
+        check(len(hist) == 1 and all(
+            math.isfinite(hist[0][k]) for k in
+            ("train_loss", "val_loss", "grad_norm")),
+            f"cli train_{kind}: history {hist}")
+        check(counts == want, f"cli train_{kind}: launches {counts} != "
+              f"{want}")
+        for slot in ("config.json", "last.pt", "best_val_model.pt",
+                     "final.pt", "final_ema.pt", "history.json"):
+            check(Path(tmp, kind, slot).is_file(),
+                  f"cli train_{kind} wrote no {slot}")
+    eng = DesignEngine.from_checkpoints(
+        f"{tmp}/structure/final.pt", f"{tmp}/sequence/final.pt",
+        transition="blosum", device="cuda", batch_size=DESIGN_BATCH,
+        sampler="ddim", ddim_steps=DDIM_STEPS)
     requests = pocket_requests(DESIGN_BATCH, seed=9)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2584,6 +2616,471 @@ def train_cli_phase(torch, kernels):
           flush=True)
     check(counts == want, f"trained engine: launches {counts} != {want}")
     check_designs(results, requests, "trained checkpoints")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: structure files to evaluated designs
+# ---------------------------------------------------------------------------
+
+CORPUS_N, CORPUS_CIF, CORPUS_GZ = 64, 8, 4
+CORPUS_LOW_RES = 1            # rows with a resolution >= 5, dropped
+CORPUS_DUPLICATES = 2         # repeated pdb_ids, dropped after the first
+DSSP_CHECK_N = 8              # structures whose C++ kernels meet numpy's
+DSSP_TOL = 1e-12
+PREPROCESS_WORKERS = 4
+ONE_TO_THREE = dict(zip("ACDEFGHIKLMNPQRSTVWY", (
+    "ALA CYS ASP GLU PHE GLY HIS ILE LYS LEU MET ASN PRO GLN ARG SER THR "
+    "VAL TRP TYR").split()))
+BB_ATOMS = (("N", "N"), ("CA", "C"), ("C", "C"), ("O", "O"))
+CIF_FIELDS = ("group_PDB", "id", "type_symbol", "label_atom_id",
+              "label_alt_id", "label_comp_id", "label_asym_id",
+              "label_seq_id", "pdbx_PDB_ins_code", "Cartn_x", "Cartn_y",
+              "Cartn_z", "occupancy", "auth_seq_id", "auth_comp_id",
+              "auth_asym_id", "auth_atom_id", "pdbx_PDB_model_num")
+
+
+def corpus_chain(rng, n, helix):
+    """(n, 4, 3) N/CA/C/O coordinates by the port's float64 NERF from
+    torsions around the helix or the strand basin, and a sequence."""
+    from e3diff_tpu_torch.geometry.nerf import nerf_build_backbone_np
+
+    center = np.array([(-63.0, -43.0) if rng.uniform() < helix
+                       else (-120.0, 130.0) for _ in range(n)])
+    phi = np.deg2rad(center[:, 0] + rng.normal(0, 12, n))
+    psi = np.deg2rad(center[:, 1] + rng.normal(0, 12, n))
+    coords = nerf_build_backbone_np(
+        phi, psi, np.pi + np.deg2rad(rng.normal(0, 3, n)),
+        psi + np.pi + np.deg2rad(rng.normal(0, 2, n)), center=False)
+    return coords.reshape(n, 4, 3), "".join(rng.choice(list(ONE_TO_THREE), n))
+
+
+def structure_text(chains, fmt: str) -> str:
+    """PDB or mmCIF (``_atom_site``) text of {chain id: (coords, seq)}."""
+    lines, serial = [], 0
+    if fmt == "cif":
+        lines = ["data_corpus", "#", "loop_",
+                 *(f"_atom_site.{f}" for f in CIF_FIELDS)]
+    for chain_id, (coords, seq) in chains.items():
+        for i, aa in enumerate(seq):
+            for j, (name, element) in enumerate(BB_ATOMS):
+                serial += 1
+                x, y, z = coords[i, j]
+                res3 = ONE_TO_THREE[aa]
+                if fmt == "cif":
+                    lines.append(
+                        f"ATOM {serial} {element} {name} . {res3} {chain_id} "
+                        f"{i + 1} ? {x:.3f} {y:.3f} {z:.3f} 1.00 {i + 1} "
+                        f"{res3} {chain_id} {name} 1")
+                else:
+                    lines.append(
+                        f"ATOM  {serial:5d}  {name:<3s}{res3:>4s} "
+                        f"{chain_id}{i + 1:4d}    {x:8.3f}{y:8.3f}{z:8.3f}"
+                        f"  1.00  5.00          {element:>2s}")
+        if fmt == "pdb":
+            lines.append("TER")
+    lines.append("#" if fmt == "cif" else "END")
+    return "\n".join(lines) + "\n"
+
+
+def write_corpus(folder: Path, seed: int = 12):
+    """CORPUS_N complexes as structure files (most .pdb, CORPUS_CIF as
+    .cif, CORPUS_GZ as .pdb.gz): a receptor chain A of 30-90 residues
+    whose 16-64 residues nearest the peptide form the pocket, and a
+    peptide chain B of 5-16 residues; then the BioLiP metadata TSV with
+    CORPUS_DUPLICATES repeated pdb_ids and CORPUS_LOW_RES resolution >= 5.
+    Returns (meta path, the pdb_ids preprocessing must keep, the paths of
+    the structures the DSSP check reads)."""
+    import gzip
+
+    rng = np.random.default_rng(seed)
+    folder.mkdir(parents=True, exist_ok=True)
+    rows, keep, dssp_paths = [], [], []
+    for i in range(CORPUS_N):
+        pdb_id = f"c{i:03d}"
+        n_rec = int(rng.integers(30, 91))
+        n_lig = int(rng.integers(5, 17))
+        rec, rec_seq = corpus_chain(rng, n_rec, rng.uniform(0.2, 0.8))
+        lig, lig_seq = corpus_chain(rng, n_lig, rng.uniform(0.2, 0.8))
+        anchor = rec[int(rng.integers(1, n_rec - 1)), 1]
+        direction = rng.normal(size=3)
+        lig = (lig - lig[:, 1].mean(0) + anchor
+               + 9.0 * direction / np.linalg.norm(direction))
+        # the pocket: the receptor's interior residues nearest the peptide
+        n_pocket = int(rng.integers(16, min(64, n_rec - 2) + 1))
+        # (a chain's first and last residue carry no angles, and the
+        # reference's pocket index is not shifted by that trim, so a site
+        # on the second-last residue would land on the peptide)
+        n_pocket = min(n_pocket, n_rec - 3)
+        d = np.linalg.norm(rec[1:-2, None, 1] - lig[None, :, 1],
+                           axis=-1).min(1)
+        site = np.sort(np.argsort(d)[:n_pocket]) + 1
+        chains = {"A": (rec, rec_seq), "B": (lig, lig_seq)}
+        if i < CORPUS_CIF:
+            path = folder / f"{pdb_id}.cif"
+            path.write_text(structure_text(chains, "cif"))
+        elif i < CORPUS_CIF + CORPUS_GZ:
+            # read by the port's readers, but parse_record looks only for
+            # {pdb_id}.pdb and {pdb_id}.cif, as the JAX package does
+            path = folder / f"{pdb_id}.pdb.gz"
+            with gzip.open(path, "wt") as f:
+                f.write(structure_text(chains, "pdb"))
+        else:
+            path = folder / f"{pdb_id}.pdb"
+            path.write_text(structure_text(chains, "pdb"))
+        if i < DSSP_CHECK_N // 2 or CORPUS_CIF <= i < CORPUS_CIF + CORPUS_GZ:
+            dssp_paths.append(path)
+        resolution = 6.5 if i == CORPUS_N - 1 else rng.uniform(1.2, 3.5)
+        site_ids = " ".join(f"{rec_seq[j]}{j + 1}" for j in site)
+        row = [pdb_id, "A", f"{resolution:.2f}", "bs1", "PEP", "B", "1",
+               site_ids, site_ids, *([""] * 10), str(n_lig), rec_seq]
+        rows.append("\t".join(row))
+        if resolution < 5 and not str(path).endswith(".gz"):
+            keep.append(pdb_id)
+    for j in range(CORPUS_DUPLICATES):   # a later row of an earlier id
+        dup = rows[CORPUS_CIF + CORPUS_GZ + j].split("\t")
+        dup[7] = dup[8] = "A2"
+        rows.append("\t".join(dup))
+    meta = folder / "meta.tsv"
+    meta.write_text("\n".join(rows) + "\n")
+    return meta, keep, dssp_paths
+
+
+@contextlib.contextmanager
+def recorded_casts():
+    """Record, for each cast_inference_params call, its storage mode and
+    the dtypes of the model's floating leaves after it (the CLIs look the
+    function up in utils/params_io.py when they run)."""
+    from e3diff_tpu_torch.utils import params_io
+
+    cast, seen = params_io.cast_inference_params, []
+
+    def recording(model, dtype):
+        out = cast(model, dtype)
+        seen.append((dtype, {str(t.dtype) for t in (
+            *model.parameters(), *(b for b in model.buffers()
+                                   if b is not None))
+            if t.is_floating_point()}))
+        return out
+
+    params_io.cast_inference_params = recording
+    try:
+        yield seen
+    finally:
+        params_io.cast_inference_params = cast
+
+
+def dssp_engines_check(paths) -> float:
+    """The C++ H-bond scan and ASA against the numpy engine on ``paths``:
+    the same bonds in the same order, values within DSSP_TOL."""
+    from e3diff_tpu_torch import native
+    from e3diff_tpu_torch.data import dssp
+    from e3diff_tpu_torch.data.native_structure import parse_structure_chains
+
+    lib, worst, n_bonds = native.load_native_lib(), 0.0, 0
+    check(lib is not None, "the native DSSP library is off")
+    for path in paths:
+        chains = parse_structure_chains(str(path))
+        entries = dssp._flatten(chains)
+        dssp._mark_connectivity(entries)
+        a, b = dssp.hbond_scan_native(entries, lib), dssp.hbond_scan_numpy(
+            entries)
+        check([x[:2] for x in a] == [x[:2] for x in b] and a,
+              f"{path.name}: the C++ H-bond scan's pairs or order differ")
+        n_bonds += len(a)
+        worst = max(worst, *(abs(x[2] - y[2]) for x, y in zip(a, b)))
+        residues, coords, radii, owner = dssp.asa_inputs(chains)
+        args = (np.stack(coords), np.asarray(radii), np.asarray(owner),
+                dssp._fibonacci_sphere(dssp.N_SPHERE_POINTS), len(residues))
+        worst = max(worst, float(np.abs(dssp.asa_native(*args, lib)
+                                        - dssp.asa_numpy(*args)).max()))
+    print(f"  C++ against numpy on {len(paths)} structures "
+          f"({', '.join(p.name for p in paths)}): {n_bonds} H-bonds in the "
+          f"same order, max abs diff {worst:.3e} (tol {DSSP_TOL:g})")
+    check(worst <= DSSP_TOL, f"C++ DSSP differs from numpy by {worst}")
+    return worst
+
+
+def evaluation_numbers(text: str) -> list[float]:
+    return [float(x) for x in re.findall(
+        r"(?<![\w.])[-+]?(?:\d+\.\d+|\d+|nan|inf)(?![\w.=])", text)]
+
+
+def files_to_designs_phase(torch, kernels, model, run_root: Path,
+                           card: str, design_seconds: dict) -> dict:
+    """Phase 11: structure files -> preprocessing -> full-width sampling
+    in bf16 storage -> PDB files -> inverse folding on the generated
+    angles -> evaluation; prune_ckpt on phase 9's run directory;
+    convert_data. Returns the seconds of each stage."""
+    from e3diff_tpu_torch import native
+    from e3diff_tpu_torch.cli import (
+        convert_data,
+        create_pdb,
+        evaluate,
+        sample_by_generated_angles,
+        sample_structure,
+    )
+    from e3diff_tpu_torch.data.dataset import load_complexes
+    from e3diff_tpu_torch.data.native_structure import parse_pdb_chains
+    from e3diff_tpu_torch.serving import DesignEngine, pocket_record
+    from e3diff_tpu_torch.utils.builders import build_sequence_model
+    from e3diff_tpu_torch.utils.presets import (
+        save_config,
+        sequence_sample_config,
+        structure_sample_config,
+    )
+
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        # 11.1 the corpus
+        t0 = time.perf_counter()
+        meta, keep, dssp_paths = write_corpus(tmp / "structures")
+        secs["corpus"] = time.perf_counter() - t0
+        print(f"  corpus: {CORPUS_N} complexes ({CORPUS_CIF} .cif, "
+              f"{CORPUS_GZ} .pdb.gz) and {CORPUS_N + CORPUS_DUPLICATES} TSV "
+              f"rows in {secs['corpus']:.2f} s", flush=True)
+
+        # 11.2 preprocessing: the library from the repo's source, then the
+        # CLI in its own process with worker processes
+        t0 = time.perf_counter()
+        lib_path = native.build_library()
+        build_s = time.perf_counter() - t0
+        check(lib_path.parent == ROOT / "e3diff_tpu_torch" / "_build" /
+              "native" and lib_path.name == native.library_path().name
+              and lib_path.is_file(),
+              f"native library {lib_path} is not the build of "
+              f"{native.SOURCE.relative_to(ROOT)}")
+        print(f"  g++ built {lib_path.relative_to(ROOT)} from "
+              f"{native.SOURCE.relative_to(ROOT)} in {build_s:.2f} s "
+              f"(BUILD_INFO {native.BUILD_INFO})")
+        corpus = tmp / "corpus.pkl"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "e3diff_tpu_torch.cli.preprocess",
+             "--meta_file", str(meta), "--structure_folder",
+             str(meta.parent), "--output", str(corpus), "--engine",
+             "native", "--workers", str(PREPROCESS_WORKERS)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        secs["preprocess"] = time.perf_counter() - t0
+        print("  " + proc.stdout.strip().replace("\n", "\n  "))
+        check(proc.returncode == 0, f"preprocess exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        check(f"native DSSP library: {lib_path} (loaded" in proc.stdout,
+              "preprocess did not load the library built from the repo")
+        records = load_complexes(str(corpus))
+        got_ids = [r["structure_ids"]["pdb_id"] for r in records]
+        rows = CORPUS_N - CORPUS_LOW_RES
+        print(f"  preprocess, {PREPROCESS_WORKERS} workers: "
+              f"{len(records)} records from {rows} rows in "
+              f"{secs['preprocess']:.2f} s wall, process start included: "
+              f"{rows / secs['preprocess']:.1f} complexes/s")
+        check(got_ids == keep and all(
+            r["preprocess_engine"] == "native" for r in records),
+            f"preprocess kept {got_ids}, expected {keep}")
+        dssp_engines_check(dssp_paths)
+
+        # 11.3 full-width sampling from the preprocessed data, bf16 storage
+        cfg = structure_sample_config(ligand_max_len=L_LIG)
+        qcfg = sequence_sample_config(ligand_max_len=L_LIG)
+        sdir, qdir = tmp / "models" / "structure", tmp / "models" / "sequence"
+        t0 = time.perf_counter()
+        check(all(v.dtype == torch.float32
+                  for v in model.state_dict().values()),
+              "the structure model is not f32")
+        save_config(cfg, str(sdir))
+        torch.save(model.state_dict(), sdir / "final.pt")
+        qmodel = build_sequence_model(qcfg, device="cuda", seed=1)
+        save_config(qcfg, str(qdir))
+        torch.save(qmodel.state_dict(), qdir / "final.pt")
+        del qmodel
+        secs["save_models"] = time.perf_counter() - t0
+
+        angles = tmp / "angles.pkl"
+        with recorded_casts() as casts:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            sampled = sample_structure.main([
+                "--data_file", str(corpus), "--ckpt", str(sdir / "final.pt"),
+                "--all_batches", "--sampler", "ddim", "--ddim_steps",
+                str(DDIM_STEPS), "--params_dtype", "bf16", "--batch_size",
+                str(B), "--no_trajectory", "--output", str(angles)])
+            secs["sample_structure"] = time.perf_counter() - t0
+            counts = launch_counts(kernels)
+        want = captured(kernels, STRUCT_CALLS)
+        print(f"  cli sample_structure ddim-{DDIM_STEPS} bf16: "
+              f"{len(sampled)} samples in {secs['sample_structure']:.2f} s "
+              f"(model load and capture included), launches {counts}; "
+              f"stored {casts}", flush=True)
+        check(counts == want, f"sample_structure: launches {counts} != "
+              f"{want}")
+        check(casts == [("bf16", {"torch.bfloat16"})],
+              f"sample_structure stored {casts}, not all bf16")
+        check(len(sampled) > 0 and all(
+            s.ndim == 2 and s.shape[1] == 8 and in_angle_range(torch, s)
+            for s in sampled), "sample_structure: samples malformed")
+
+        pdb_dir = tmp / "pdbs"
+        t0 = time.perf_counter()
+        written = create_pdb.main(["--input", str(angles), "--outdir",
+                                   str(pdb_dir)])
+        worst = 0.0
+        for path, s in zip(written, sampled):
+            check(bool(path), "create_pdb: a NaN reconstruction")
+            chains = parse_pdb_chains(path)
+            res = chains.get("A", [])
+            check(list(chains) == ["A"] and len(res) == len(s) and all(
+                list(r.atoms) == ["N", "CA", "C", "O"] for r in res),
+                f"{path}: not 4 backbone atoms for each of {len(s)} "
+                "residues")
+            coords = np.stack([r[a].get_coord() for r in res
+                               for a in ("N", "CA", "C", "O")])
+            check(np.isfinite(coords).all(), f"{path}: coordinates")
+            if len(s) > 1:
+                worst = max(worst, float(bond_errors(coords).max()))
+        secs["create_pdb"] = time.perf_counter() - t0
+        print(f"  cli create_pdb: {len(written)} PDBs read back by the "
+              f"port's reader in {secs['create_pdb']:.2f} s, bond lengths "
+              f"within {worst:.2e} A of ideal (atol {PDB_BOND_ATOL:g})")
+        check(worst <= PDB_BOND_ATOL, "create_pdb: bond lengths")
+
+        seqs = tmp / "sequences.pkl"
+        with recorded_casts() as casts:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = sample_by_generated_angles.main([
+                "--data_file", str(corpus), "--ckpt", str(qdir / "final.pt"),
+                "--generated", str(angles), "--output", str(seqs),
+                "--params_dtype", "bf16", "--batch_size", str(B)])
+            secs["sample_by_generated_angles"] = time.perf_counter() - t0
+            counts = launch_counts(kernels)
+        want = captured(kernels, SEQ_CALLS)
+        print(f"  cli sample_by_generated_angles bf16: "
+              f"{len(results['predict_sequence'])} sequences in "
+              f"{secs['sample_by_generated_angles']:.2f} s, launches "
+              f"{counts}; stored {casts}", flush=True)
+        check(counts == want, f"sample_by_generated_angles: launches "
+              f"{counts} != {want}")
+        check(casts == [("bf16", {"torch.bfloat16"})],
+              f"sample_by_generated_angles stored {casts}, not all bf16")
+        check([len(q) for q in results["predict_sequence"]]
+              == [len(s) for s in sampled] and all(
+                  set(q) <= set(ONE_TO_THREE)
+                  for q in results["predict_sequence"]),
+              "sample_by_generated_angles: sequences invalid")
+
+        report = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(report):
+            evaluate.main(["--data_file", str(corpus), "--angles",
+                           str(angles), "--sequences", str(seqs),
+                           "--geometry", "--config", str(sdir)])
+        secs["evaluate"] = time.perf_counter() - t0
+        text = report.getvalue()
+        print("  cli evaluate:\n    " + text.strip().replace("\n", "\n    "))
+        numbers = evaluation_numbers(text)
+        tvs = [float(x) for x in re.findall(
+            r"^\s+\S+\s+([-\d.]+)$", text.split("mean TV")[0], re.M)]
+        tvs += [float(x) for x in re.findall(r"TV distance: ([-\d.]+)", text)]
+        rates = [float(x) for x in re.findall(
+            r"(?:mean|median|max)=([-\d.]+)", text)]
+        check(numbers and all(math.isfinite(x) for x in numbers),
+              "evaluate printed a number that is not finite")
+        check(len(tvs) == 10 and all(0 <= x <= 1 for x in tvs),
+              f"evaluate: TV distances {tvs}")
+        check(len(rates) == 3 and all(0 <= x <= 1 for x in rates),
+              f"evaluate: recovery rates {rates}")
+        check(re.search(r"sampled backbone geometry.* nan=0/", text)
+              is not None, "evaluate: a NaN reconstruction")
+
+        # the bf16 design batch beside phase 8's int8_matmul one
+        t0 = time.perf_counter()
+        eng = DesignEngine.from_checkpoints(
+            str(sdir / "final.pt"), str(qdir / "final.pt"),
+            params_dtype="bf16", device="cuda", batch_size=DESIGN_BATCH,
+            batch_buckets=[8], sampler="ddim", ddim_steps=DDIM_STEPS)
+        kernels.reset_launch_counts()
+        eng.warmup(generator=torch.Generator(device="cuda").manual_seed(5))
+        counts = launch_counts(kernels)
+        want = sum_counts(captured(kernels, STRUCT_CALLS, 2),
+                          captured(kernels, SEQ_CALLS, 2))
+        secs["engine_load_warmup"] = time.perf_counter() - t0
+        check(counts == want, f"bf16 engine warmup: launches {counts} != "
+              f"{want}")
+        requests = pocket_requests(DESIGN_BATCH, seed=4)
+        pockets = [pocket_record(*r) for r in requests]
+        for rep in range(2):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            designs = eng.design_records(pockets, generator=torch.Generator(
+                device="cuda").manual_seed(6))
+            secs[f"design_batch_bf16_{rep}"] = time.perf_counter() - t0
+            check(launch_counts(kernels) == with_zeros(kernels, {}),
+                  "a warm bf16 engine launched outside its graphs")
+        check_designs(designs, requests, "bf16 engine")
+        int8 = design_seconds[f"{DESIGN_BATCH} records int8_matmul"]
+        print(f"  DesignEngine bf16: {DESIGN_BATCH} records in "
+              f"{secs['design_batch_bf16_0']:.3f} / "
+              f"{secs['design_batch_bf16_1']:.3f} s per design batch, "
+              f"beside phase 8's int8_matmul {int8:.3f} s (load and "
+              f"capture {secs['engine_load_warmup']:.2f} s, warmup "
+              f"launches {counts})", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+
+        # 11.4 prune_ckpt on phase 9's run directory
+        run = run_root / "structure"
+        before = sorted(p.name for p in run.iterdir())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "e3diff_tpu_torch.cli.prune_ckpt",
+             str(run)], cwd=ROOT, capture_output=True, text=True,
+            timeout=120)
+        after = sorted(p.name for p in run.iterdir())
+        print(f"  cli prune_ckpt: {before} -> {after}: "
+              f"{proc.stdout.strip().splitlines()[-1:]}")
+        check(proc.returncode == 0, f"prune_ckpt failed: {proc.stderr}")
+        check("last.pt" not in after and {
+            "final.pt", "best_val_model.pt", "final_ema.pt", "config.json",
+            "history.json"} <= set(after) and not any(
+                n.endswith(".tmp") for n in after),
+            f"prune_ckpt left {after}")
+        eng = DesignEngine.from_checkpoints(
+            str(run / "final.pt"), str(run_root / "sequence" / "final.pt"),
+            transition="blosum", device="cuda", batch_size=DESIGN_BATCH)
+        check(eng.structure_model is not None,
+              "DesignEngine did not load the pruned final.pt")
+        del eng
+        empty = tmp / "no_artifacts"
+        empty.mkdir()
+        (empty / "last.pt").write_bytes(b"")
+        refused = subprocess.run(
+            [sys.executable, "-m", "e3diff_tpu_torch.cli.prune_ckpt",
+             str(empty)], cwd=ROOT, capture_output=True, text=True,
+            timeout=120)
+        secs["prune_ckpt"] = time.perf_counter() - t0
+        print(f"  prune_ckpt without an inference artifact: exit "
+              f"{refused.returncode}, {refused.stderr.strip()[-90:]!r}")
+        check(refused.returncode != 0 and (empty / "last.pt").is_file(),
+              "prune_ckpt pruned a directory with no inference artifact")
+
+        # 11.5 convert_data: the corpus as a torch .pt of tensors -> pickle
+        t0 = time.perf_counter()
+        as_pt = tmp / "corpus.pt"
+        torch.save([{k: torch.from_numpy(v) if isinstance(v, np.ndarray)
+                     else v for k, v in r.items()} for r in records], as_pt)
+        convert_data.main(["--input", str(as_pt), "--output",
+                           str(tmp / "converted.pkl")])
+        back = load_complexes(str(tmp / "converted.pkl"))
+        same = len(back) == len(records) and all(
+            list(a) == list(b) and all(
+                np.array_equal(a[k], b[k]) if isinstance(b[k], np.ndarray)
+                else a[k] == b[k] for k in b)
+            for a, b in zip(back, records))
+        secs["convert_data"] = time.perf_counter() - t0
+        check(same, "convert_data: the converted corpus differs")
+    print(f"  {card}")
+    return secs
 
 
 if __name__ == "__main__":

@@ -63,8 +63,11 @@ def main(argv=None) -> dict:
     if not args.synthetic and not args.data_file:
         raise SystemExit("--data_file is required unless --synthetic")
 
-    from e3diff_tpu_torch.models import SequenceDenoiser, StructureDenoiser
     from e3diff_tpu_torch.sampling import run_pipeline
+    from e3diff_tpu_torch.utils.builders import (
+        build_sequence_model,
+        build_structure_model,
+    )
     from e3diff_tpu_torch.utils.device import resolve_device
     from e3diff_tpu_torch.utils.params_io import (
         cast_inference_params,
@@ -76,7 +79,6 @@ def main(argv=None) -> dict:
         _parser_flag_names,
         check_shared_fields,
         load_ckpt_config,
-        transformer_configs,
     )
 
     # the shared and structure fields follow the structure checkpoint's
@@ -99,13 +101,12 @@ def main(argv=None) -> dict:
     test_ds = load_test_data(args, cfg)
     qcfg = dataclasses.replace(cfg, timesteps=args.sequence_timesteps,
                                num_hidden_layers=args.sequence_layers)
-    smodel = StructureDenoiser(
-        *transformer_configs(cfg, "torch_default"), device=device,
-        seed=None if args.structure_ckpt else cfg.seed)
+    smodel = build_structure_model(
+        cfg, device=device, seed=None if args.structure_ckpt else cfg.seed)
     if args.structure_ckpt:
         load_structure_checkpoint(args.structure_ckpt, smodel)
-    qmodel = SequenceDenoiser(
-        *transformer_configs(qcfg, "xavier_all"), device=device,
+    qmodel = build_sequence_model(
+        qcfg, device=device,
         seed=None if args.sequence_ckpt else cfg.seed + 1)
     if args.sequence_ckpt:
         load_sequence_checkpoint(args.sequence_ckpt, qmodel,

@@ -17,6 +17,8 @@ import pickle
 
 import numpy as np
 
+from e3diff_tpu_torch.utils.params_io import PARAMS_DTYPES
+
 
 def add_common_flags(p: argparse.ArgumentParser, *, max_seq_len: int,
                     timesteps: int, num_hidden_layers: int) -> None:
@@ -37,8 +39,8 @@ def add_common_flags(p: argparse.ArgumentParser, *, max_seq_len: int,
                    choices=["relative_key", "absolute"])
     p.add_argument("--bf16", type=int, choices=[0, 1], default=1,
                    help="bf16 compute (1) or f32 (0)")
-    p.add_argument("--params_dtype", default="f32",
-                   choices=["f32", "bf16_matmul", "int8_matmul"])
+    p.add_argument("--params_dtype", default="f32", choices=PARAMS_DTYPES,
+                   help="weight storage (utils/params_io.py)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--synthetic", action="store_true",
@@ -109,33 +111,26 @@ def main(argv=None) -> dict:
     if not args.synthetic and not args.data_file:
         raise SystemExit("--data_file is required unless --synthetic")
 
-    from e3diff_tpu_torch.diffusion import D3PMDiffusion
-    from e3diff_tpu_torch.models import SequenceDenoiser
-    from e3diff_tpu_torch.ops.transitions import (
-        BlosumTransition,
-        UniformTransition,
-    )
     from e3diff_tpu_torch.sampling import sample_sequence_batches
+    from e3diff_tpu_torch.utils.builders import (
+        build_sequence_diffusion,
+        build_sequence_model,
+    )
     from e3diff_tpu_torch.utils.device import resolve_device
     from e3diff_tpu_torch.utils.params_io import (
         cast_inference_params,
         load_sequence_checkpoint,
     )
-    from e3diff_tpu_torch.utils.presets import transformer_configs
 
     device = resolve_device(args.device)
     cfg = sampling_config(args, parser, args.ckpt, argv)
     test_ds = load_test_data(args, cfg)
-    model = SequenceDenoiser(*transformer_configs(cfg, "xavier_all"),
-                             device=device,
-                             seed=None if args.ckpt else cfg.seed)
+    model = build_sequence_model(cfg, device=device,
+                                 seed=None if args.ckpt else cfg.seed)
     if args.ckpt:
         load_sequence_checkpoint(args.ckpt, model, cfg.timesteps)
     cast_inference_params(model, args.params_dtype)
-    trans = (BlosumTransition(device=device) if args.transition == "blosum"
-             else UniformTransition(20))
-    d3pm = D3PMDiffusion.create(trans, timesteps=cfg.timesteps,
-                                device=device)
+    d3pm = build_sequence_diffusion(cfg, args.transition, device=device)
 
     results = sample_sequence_batches(
         model, d3pm, test_ds.batches(cfg.batch_size), device=device,

@@ -51,26 +51,26 @@ def main(argv=None) -> list:
     if not args.synthetic and not args.data_file:
         raise SystemExit("--data_file is required unless --synthetic")
 
-    from e3diff_tpu_torch.diffusion import GaussianAngleDiffusion
-    from e3diff_tpu_torch.models import StructureDenoiser
     from e3diff_tpu_torch.sampling import sample_structure_batches
+    from e3diff_tpu_torch.utils.builders import (
+        build_structure_diffusion,
+        build_structure_model,
+    )
     from e3diff_tpu_torch.utils.device import resolve_device
     from e3diff_tpu_torch.utils.params_io import (
         cast_inference_params,
         load_structure_checkpoint,
     )
-    from e3diff_tpu_torch.utils.presets import transformer_configs
 
     device = resolve_device(args.device)
     cfg = sampling_config(args, parser, args.ckpt, argv)
     test_ds = load_test_data(args, cfg)
-    model = StructureDenoiser(*transformer_configs(cfg, "torch_default"),
-                              device=device,
-                              seed=None if args.ckpt else cfg.seed)
+    model = build_structure_model(cfg, device=device,
+                                  seed=None if args.ckpt else cfg.seed)
     if args.ckpt:
         load_structure_checkpoint(args.ckpt, model)
     cast_inference_params(model, args.params_dtype)
-    diffusion = GaussianAngleDiffusion.cosine(cfg.timesteps, device=device)
+    diffusion = build_structure_diffusion(cfg, device=device)
 
     results = sample_structure_batches(
         model, diffusion, test_ds.batches(cfg.batch_size), device=device,

@@ -58,6 +58,12 @@ def load_complexes(path: str) -> list[dict]:
         return pickle.load(f)
 
 
+def save_complexes(data: list[dict], path: str) -> None:
+    """Write a complex list as the native pickle ``load_complexes`` reads."""
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+
+
 def split_complexes(data: list, split: str | None):
     """Reference split: seeded Python shuffle then 80/10/10 slices
     (structure_model/dataset.py:60-70). Mutates a copy."""
@@ -86,6 +92,24 @@ def pocket_extend_mask(pocket_mask: np.ndarray, ext: int) -> np.ndarray:
     right = np.roll(pocket_mask, -ext)
     right[-1] = False
     return pocket_mask | left | right
+
+
+def suggest_buckets(complexes: list[dict], pocket_ext: int,
+                    multiple: int = 8) -> tuple[int, int]:
+    """The smallest (ligand_max_len, receptor_max_len) covering every
+    complex, each rounded up to ``multiple``: peptides are short (5..16
+    residues) while extended pockets need 64 or 128, so separate buckets
+    cut the decoder's tokens about 4x."""
+    lig_max = poc_max = 1
+    for d in complexes:
+        lig_max = max(lig_max, int(np.asarray(d["ligand_mask"]).sum()))
+        poc = pocket_extend_mask(np.asarray(d["pocket_mask"]), pocket_ext)
+        poc_max = max(poc_max, int(poc.sum()))
+
+    def round_up(x):
+        return ((x + multiple - 1) // multiple) * multiple
+
+    return round_up(lig_max), round_up(poc_max)
 
 
 def _pad_to(x: np.ndarray, max_len: int) -> np.ndarray:

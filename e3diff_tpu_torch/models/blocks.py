@@ -83,8 +83,10 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator):
 
 class Linear(nn.Module):
     """y = x W^T + b in the compute dtype. ``weight`` is (out, in) and is
-    stored f32, bf16, or int8 beside a per-output-channel ``weight_scale``
-    (utils/params_io.py::cast_inference_params)."""
+    stored f32, bf16, or int8 beside a per-output-channel ``weight_scale``;
+    ``bias`` is stored f32, or bf16 in the full ``bf16`` mode
+    (utils/params_io.py::cast_inference_params). Both are cast to the
+    compute dtype here, as flax's Dense promotes its params."""
 
     QUANT_AXIS = -1  # the input axis of torch's (out, in) layout
 
@@ -286,8 +288,9 @@ class GaussianFourierProjection(nn.Module):
     """Fixed random Fourier features of the timestep; W ~ N(0, (2 pi)^2).
 
     The timestep is cast to the compute dtype first, as in the JAX package
-    (blocks.py:416): in bf16, t = 999 becomes 1000. W stays f32 in every
-    storage mode, so t * W * 2 pi and sin/cos are then f32 by promotion, in
+    (blocks.py:416): in bf16, t = 999 becomes 1000. W is f32 in every
+    storage mode but full ``bf16``, so t * W * 2 pi and sin/cos are then f32
+    by promotion; with W stored bf16 and bf16 compute they are bf16, in
     both packages."""
 
     def __init__(self, cfg: TransformerConfig, device=None):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -58,3 +59,19 @@ def radian_smooth_l1_loss(input, target, beta: float = 1.0,
         turns = torch.trunc(input.abs() / math.pi)
         loss = loss + circle_penalty * masked_mean(turns, mask)
     return loss
+
+
+def tolerant_comparison_check(values, cmp: str, v) -> bool:
+    """Whether every value is >= (or <=) ``v`` up to an absolute 1e-5, NaNs
+    ignored (tolerant_comparison_check, structure_model/utils.py:111-131;
+    a host-side check on numpy arrays or tensors)."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().numpy()
+    values = np.asarray(values)
+    if cmp == ">=":
+        diff = np.nanmin(values) - v
+        return bool(np.isclose(diff, 0, atol=1e-5) or diff > 0)
+    if cmp == "<=":
+        diff = np.nanmax(values) - v
+        return bool(np.isclose(diff, 0, atol=1e-5) or diff < 0)
+    raise ValueError(f"Illegal comparator: {cmp}")

@@ -75,3 +75,60 @@ class DiscreteNoiseSchedule:
         alphas_bar = np.exp(log_alpha_bar).astype(np.float32)
         return cls(timesteps=timesteps, betas=betas, alphas=alphas,
                    alphas_bar=alphas_bar)
+
+
+def cosine_alpha_bar_schedule(timesteps: int, s: float = 8e-3,
+                              raise_to_power: float = 1.0) -> np.ndarray:
+    """Continuous cosine schedule returning alphas_cumprod of shape
+    (timesteps + 1,), betas clipped to [0, 0.999]
+    (sequence_model/utils.py:80-97, named ``cosine_beta_schedule`` there
+    though it returns cumulative alphas). No sampler or trainer uses it;
+    ``GammaNoiseSchedule`` is built on it. float32."""
+    steps = timesteps + 2
+    x = np.linspace(0, steps, steps, dtype=np.float64)
+    alphas_cumprod = np.cos(((x / steps) + s) / (1 + s) * np.pi * 0.5) ** 2
+    alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
+    betas = np.clip(1 - alphas_cumprod[1:] / alphas_cumprod[:-1], 0, 0.999)
+    alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+    if raise_to_power != 1:
+        alphas_cumprod = np.power(alphas_cumprod, raise_to_power)
+    return alphas_cumprod.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class GammaNoiseSchedule:
+    """Continuous-gamma lookup schedule, gamma(t) = -log(alpha^2 / sigma^2)
+    (the reference's unused PredefinedNoiseSchedule,
+    sequence_model/utils.py:180-204), indexed by t in [0, 1] rounded to
+    the nearest of its timesteps + 1 entries."""
+
+    timesteps: int
+    gamma: np.ndarray
+
+    @classmethod
+    def cosine(cls, timesteps: int) -> "GammaNoiseSchedule":
+        alphas2 = cosine_alpha_bar_schedule(timesteps).astype(np.float64)
+        sigmas2 = 1.0 - alphas2
+        gamma = -(np.log(alphas2) - np.log(sigmas2))
+        return cls(timesteps=timesteps, gamma=gamma.astype(np.float32))
+
+    def __call__(self, t_normalized):
+        idx = np.round(
+            np.asarray(t_normalized) * self.timesteps).astype(np.int64)
+        return self.gamma[idx]
+
+
+def custom_beta_schedule_discrete(timesteps: int, average_num_nodes: int = 50,
+                                  s: float = 8e-3) -> np.ndarray:
+    """The discrete cosine schedule with a floor on its small betas
+    (sequence_model/utils.py:110-130, a graph-diffusion leftover with no
+    caller in the reference: the floor is sized by the expected edge count
+    of a graph of ``average_num_nodes``). float32."""
+    if timesteps < 100:
+        raise ValueError(f"timesteps must be >= 100, got {timesteps}")
+    betas = cosine_beta_schedule_discrete(timesteps, s).astype(np.float64)
+    p = 4 / 5  # 1 - 1 / num_edge_classes
+    num_edges = average_num_nodes * (average_num_nodes - 1) / 2
+    beta_first = 1.2 / (p * num_edges)
+    betas[betas < beta_first] = beta_first
+    return betas.astype(np.float32)

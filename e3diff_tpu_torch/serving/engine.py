@@ -172,18 +172,10 @@ class DesignEngine:
         reference's own, or the JAX package's ``export_*_state_dict``),
         each model's architecture from its ``config.json`` sidecar.
 
-        params_dtype: weight storage of both models ("f32", "bf16_matmul"
-        or "int8_matmul"); seq_params_dtype: the sequence model's, when it
-        should differ (None: params_dtype)."""
-        from e3diff_tpu_torch.diffusion import (
-            D3PMDiffusion,
-            GaussianAngleDiffusion,
-        )
-        from e3diff_tpu_torch.models import SequenceDenoiser, StructureDenoiser
-        from e3diff_tpu_torch.ops.transitions import (
-            BlosumTransition,
-            UniformTransition,
-        )
+        params_dtype: weight storage of both models (one of
+        utils/params_io.py's PARAMS_DTYPES); seq_params_dtype: the sequence
+        model's, when it should differ (None: params_dtype)."""
+        from e3diff_tpu_torch.utils import builders
         from e3diff_tpu_torch.utils.params_io import (
             cast_inference_params,
             load_sequence_checkpoint,
@@ -194,7 +186,6 @@ class DesignEngine:
             config_from_sidecar,
             load_ckpt_config,
             structure_sample_config,
-            transformer_configs,
         )
 
         device = resolve_device(device)
@@ -208,21 +199,17 @@ class DesignEngine:
             cfg, timesteps=qside.get("timesteps", 50),
             num_hidden_layers=qside.get("num_hidden_layers", 6))
 
-        smodel = StructureDenoiser(*transformer_configs(cfg, "torch_default"),
-                                   device=device, seed=None)
+        smodel = builders.build_structure_model(cfg, device=device)
         load_structure_checkpoint(structure_ckpt, smodel)
         cast_inference_params(smodel, params_dtype)
-        qmodel = SequenceDenoiser(*transformer_configs(qcfg, "xavier_all"),
-                                  device=device, seed=None)
+        qmodel = builders.build_sequence_model(qcfg, device=device)
         load_sequence_checkpoint(sequence_ckpt, qmodel, qcfg.timesteps)
         cast_inference_params(qmodel, seq_params_dtype)
-        trans = (BlosumTransition(device=device) if transition == "blosum"
-                 else UniformTransition(20))
         return cls(cfg, smodel,
-                   GaussianAngleDiffusion.cosine(cfg.timesteps, device=device),
+                   builders.build_structure_diffusion(cfg, device=device),
                    qmodel,
-                   D3PMDiffusion.create(trans, timesteps=qcfg.timesteps,
-                                        device=device),
+                   builders.build_sequence_diffusion(qcfg, transition,
+                                                     device=device),
                    device=device, **kwargs)
 
     # ------------------------------------------------------------------

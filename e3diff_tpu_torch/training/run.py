@@ -20,7 +20,6 @@ from e3diff_tpu_torch.utils.presets import (
     save_config,
     sequence_train_config,
     structure_train_config,
-    transformer_configs,
 )
 
 PRESETS = {"structure": structure_train_config,
@@ -47,27 +46,24 @@ def build_trainer(kind: str, cfg, device, steps_per_epoch: int):
     """The ``kind`` ("structure" or "sequence") model with seeded random
     weights on ``device``, its diffusion (the sequence model's with the
     BLOSUM transition), AdamW and the trainer, from ``cfg``."""
-    from e3diff_tpu_torch.diffusion import D3PMDiffusion, GaussianAngleDiffusion
-    from e3diff_tpu_torch.models import SequenceDenoiser, StructureDenoiser
-    from e3diff_tpu_torch.ops.transitions import BlosumTransition
     from e3diff_tpu_torch.training import (
         AdamW,
         SequenceTrainer,
         StructureTrainer,
     )
+    from e3diff_tpu_torch.utils import builders
 
     if kind == "structure":
-        model = StructureDenoiser(*transformer_configs(cfg, "torch_default"),
-                                  device=device, seed=cfg.seed)
-        diffusion = GaussianAngleDiffusion.cosine(cfg.timesteps, device=device)
+        model = builders.build_structure_model(cfg, device=device,
+                                               seed=cfg.seed)
+        diffusion = builders.build_structure_diffusion(cfg, device=device)
         trainer_cls = StructureTrainer
     else:
-        model = SequenceDenoiser(*transformer_configs(cfg, "xavier_all"),
-                                 device=device, seed=cfg.seed)
+        model = builders.build_sequence_model(cfg, device=device,
+                                              seed=cfg.seed)
         # the BLOSUM transition, as scripts/train_sequence.py:81 builds it
-        diffusion = D3PMDiffusion.create(BlosumTransition(device=device),
-                                         timesteps=cfg.timesteps,
-                                         device=device)
+        diffusion = builders.build_sequence_diffusion(cfg, "blosum",
+                                                      device=device)
         trainer_cls = SequenceTrainer
     optimizer = AdamW(dict(model.named_parameters()), base_lr=cfg.lr,
                       weight_decay=cfg.l2_norm, max_epochs=cfg.max_epochs,

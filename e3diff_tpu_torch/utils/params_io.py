@@ -1,14 +1,22 @@
 """Inference weight storage and checkpoint loading (counterpart of
 e3diff_tpu/utils/params_io.py).
 
-Storage modes of the >=2-D weights (Linear weights and distance tables);
-1-D leaves (biases, LayerNorm affines, the Fourier W) stay f32 in all of
-them:
+Storage modes (PARAMS_DTYPES); training keeps f32 weights in every one:
 
 * ``f32``: as trained;
-* ``bf16_matmul``: stored bf16;
-* ``int8_matmul``: int8 plus a per-output-channel bf16 scale
-  (utils/quant.py), dequantized where each weight is used.
+* ``bf16_matmul``: the >=2-D weights (Linear weights and distance tables)
+  stored bf16, the 1-D leaves (biases, LayerNorm affines, the Fourier W)
+  f32. With bf16 compute the weights are rounded to bf16 where they are
+  used anyway, so this is sample-identical to f32 at half the weight bytes;
+* ``bf16``: every floating leaf stored bf16, the 1-D ones too. The JAX
+  package measured its cost on the structure model: the rounded biases and
+  LayerNorm / adaLN affines bias every reverse step the same way, and the
+  sampled-angle distribution's TV distance to the data rose from 0.084 to
+  0.399 (its BENCHMARKS.md, "bf16 parameter storage"); on the sequence
+  model's 50-step D3PM it stayed harmless. The CLIs default to f32;
+* ``int8_matmul``: the >=2-D weights as int8 plus a per-output-channel
+  bf16 scale (utils/quant.py), dequantized where each weight is used; the
+  1-D leaves f32.
 """
 
 from __future__ import annotations
@@ -21,13 +29,13 @@ from e3diff_tpu_torch.models.blocks import DistanceEmbedding, Linear
 from e3diff_tpu_torch.ops.schedules import DiscreteNoiseSchedule
 from e3diff_tpu_torch.utils.quant import quantize_int8
 
-PARAMS_DTYPES = ("f32", "bf16_matmul", "int8_matmul")
+PARAMS_DTYPES = ("f32", "bf16", "bf16_matmul", "int8_matmul")
 
 
 @torch.no_grad()
 def cast_inference_params(model: nn.Module, dtype: str | None) -> nn.Module:
-    """Convert the model's >=2-D weights, in place, to the storage
-    ``dtype`` (one of PARAMS_DTYPES; None or "f32" leaves them f32)."""
+    """Convert the model's weights, in place, to the storage ``dtype`` (one
+    of PARAMS_DTYPES; None or "f32" leaves them f32)."""
     if dtype is None or dtype == "f32":
         return model
     if dtype not in PARAMS_DTYPES:
@@ -38,11 +46,21 @@ def cast_inference_params(model: nn.Module, dtype: str | None) -> nn.Module:
             continue
         if m.weight_scale is not None or m.weight.dtype != torch.float32:
             raise ValueError("weights are already cast")
-        if dtype == "bf16_matmul":
-            stored = m.weight.to(torch.bfloat16)
-        else:
+        if dtype == "int8_matmul":
             stored, m.weight_scale = quantize_int8(m.weight, m.QUANT_AXIS)
+        else:
+            stored = m.weight.to(torch.bfloat16)
         m.weight = nn.Parameter(stored, requires_grad=False)
+    if dtype == "bf16":
+        # the 1-D leaves: parameters and the Fourier W buffer
+        for m in model.modules():
+            for name, p in list(m.named_parameters(recurse=False)):
+                if p.dtype == torch.float32:
+                    setattr(m, name, nn.Parameter(p.to(torch.bfloat16),
+                                                  requires_grad=False))
+            for name, b in list(m.named_buffers(recurse=False)):
+                if b is not None and b.dtype == torch.float32:
+                    setattr(m, name, b.to(torch.bfloat16))
     return model
 
 

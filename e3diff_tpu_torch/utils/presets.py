@@ -1,6 +1,6 @@
 """Experiment configurations, their flags and their checkpoint sidecars
-(the port's copy of e3diff_tpu/utils/presets.py and of the config part of
-e3diff_tpu/utils/builders.py).
+(the port's copy of e3diff_tpu/utils/presets.py; the models, diffusions
+and datasets they describe are built by utils/builders.py).
 
 The reference has no flag system: every entry script carries an inline
 CONFIG (structure_model/train_model.py:18-39, sample.py:20-41;
@@ -19,10 +19,6 @@ import json
 import os
 import sys
 import tempfile
-
-import torch
-
-from e3diff_tpu_torch.models.config import TransformerConfig
 
 
 @dataclasses.dataclass
@@ -84,6 +80,13 @@ def structure_sample_config(**overrides) -> ExperimentConfig:
     """structure_model/sample.py:20-41 (ext 0, max_len 64)."""
     cfg = ExperimentConfig(pocket_ext=0, max_seq_len=64, timesteps=1000,
                            num_hidden_layers=12)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def sequence_sample_config(**overrides) -> ExperimentConfig:
+    """sequence_model/sample.py:28-50 (ext 0, max_len 64, 50 steps)."""
+    cfg = ExperimentConfig(pocket_ext=0, max_seq_len=64, timesteps=50,
+                           num_hidden_layers=6)
     return dataclasses.replace(cfg, **overrides)
 
 
@@ -267,22 +270,3 @@ def config_from_sidecar(base: ExperimentConfig, side: dict | None
     names = {f.name for f in dataclasses.fields(ExperimentConfig)}
     return dataclasses.replace(base, **{k: v for k, v in (side or {}).items()
                                         if k in names})
-
-
-def transformer_configs(cfg: ExperimentConfig, init_style: str
-                        ) -> tuple[TransformerConfig, TransformerConfig]:
-    """Encoder and decoder configs of a model built from ``cfg``
-    (torch_default for the structure model, xavier_all for the
-    sequence model)."""
-    base = dict(
-        hidden_size=cfg.hidden_size, num_heads=cfg.num_heads,
-        num_layers=cfg.num_hidden_layers,
-        intermediate_size=cfg.intermediate_size,
-        max_position_embeddings=cfg.max_seq_len,
-        position_embedding_type=cfg.position_embedding_type,
-        dropout=cfg.dropout_p, attention_dropout=cfg.dropout_p,
-        init_style=init_style,
-        dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
-    )
-    return (TransformerConfig(**base, add_cross_attention=False),
-            TransformerConfig(**base, add_cross_attention=True))
