@@ -61,8 +61,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (38 + 70 forward and 38 + 70 backward; 15 + 32 and 15 + 32), an eval
    step (forward kernels only), the median step time, samples/s and peak
    memory; two 3-step structure runs from one seed ending in the same
-   weights; both train CLIs for one epoch, and DesignEngine serving a
-   design batch from the two final.pt files they wrote;
+   weights; both train CLIs for one epoch (each captures its train step:
+   the launches of the capture with its warm-up, then an eager eval
+   step), and DesignEngine serving a design batch from the two final.pt
+   files they wrote;
 10. serving at full width, int8_matmul: the captured samplers against
    the eager loop on the same draws (structure DDIM-25, DDPM-1000 and a
    CFG DDIM-25 batch with per-slot scales; sequence D3PM-50, plain and
@@ -91,14 +93,31 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    every floating leaf stored bf16; a bf16 DesignEngine's design batch
    beside phase 8's int8_matmul one; prune_ckpt on phase 9's run
    directory (DesignEngine still loads its final.pt; a directory with no
-   inference artifact is refused); convert_data from a .pt corpus.
+   inference artifact is refused); convert_data from a .pt corpus;
+12. the train step captured as one CUDA graph (Trainer.capture), for
+   both trainers at their presets (B=64, length 128, bf16 compute,
+   dropout 0.1): 20 replays against 20 eager steps of a trainer built
+   from the same seed, every draw from the trainer's generator -- losses,
+   grad norms, weights, moments and count equal bit for bit (on a
+   difference, the same comparison at dropout 0 with the draws injected
+   says whether the draws make it); the launches at capture (one step's)
+   and, by kernel name in a utils/timing.py::profiler_trace, per replay;
+   ms per step (median of 18 after 2), samples/s, max_memory_allocated,
+   the device idle share and the utils/profiling.py digest of 3 profiled
+   steps, eager and captured; 2 captured steps with accum_steps 2,
+   cond_dropout 0.1 and an EMA against 2 eager ones, bit for bit; then the
+   structure train CLI, captured, for 2 epochs with --profile_dir (the
+   digest printed, the trace written, the peak memory with the snapshot
+   saves), 1 epoch and a resume for 1 more ending in the same final.pt,
+   and 2 epochs under E3DIFF_SNAPSHOT_SAVES=0 writing the same files.
 
 The last three lines are the kernels' JSON record, the card, and
 ``{"ok": true, "device": {...}}``. The kernels' ``launches`` in the
-record sum three main paths' runs: phase 6's DDPM-1000 int8 run (its
+record sum the main paths' runs: phase 6's DDPM-1000 int8 run (its
 capture included), phase 10's server (its warmup's captures and 40
-requests) and phase 9's train steps; phase 11 checks its own launches
-and adds none.
+requests), phase 9's eager train steps and phase 12's captured ones
+(each capture with its warm-up steps; replays launch nothing from
+Python); phase 11 checks its own launches and adds none.
 
 Usage, from the root of a checkout:
     python3 chip_smoke.py              # what the checks above need
@@ -107,7 +126,8 @@ Usage, from the root of a checkout:
                                          # (captured and eager) and 3
                                          # structure train steps (device
                                          # busy ms a step, the dropout draws'
-                                         # ms), traces written to DIR
+                                         # ms), traces written to DIR, with
+                                         # phase 12's
 Without a CUDA card, or away from the repository, it exits non-zero and
 prints no result.
 """
@@ -1002,13 +1022,6 @@ def main(argv=None) -> int:
         torch, kernels, model, enc, dec, diffusion, batch, card,
         None if args.profile is None else Path(args.profile))
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
-    # the launches of the main paths' runs: the DDPM-1000 structure run
-    # (its capture), the server (its warmup's captures and 40 requests)
-    # and the two trainers' train steps
-    for entry in record:
-        entry["launches"] = (main_counts[entry["name"]]
-                             + serve_counts[entry["name"]]
-                             + train_counts[entry["name"]])
 
     if args.profile:
         for eager in (False, True):
@@ -1033,11 +1046,43 @@ def main(argv=None) -> int:
     flow_seconds["phase"] = time.perf_counter() - t0
     print(f"  phase 11 took {flow_seconds['phase']:.1f} s")
 
+    # 12 --------------------------------------------------------------
+    phase("12. the train step captured as one CUDA graph: replays against "
+          "eager steps, launches, times, digests; the train CLI captured, "
+          "profiled, resumed, with snapshot and synchronous saves")
+    t0 = time.perf_counter()
+    del model   # what stays resident under phase 12's trainers is printed
+    torch.cuda.empty_cache()
+    print(f"  memory_allocated before: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    capture_timing = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as tmp:
+        out = Path(args.profile or tmp)
+        for model_name in ("structure", "sequence"):
+            counts, capture_timing[model_name] = captured_train_phase(
+                torch, kernels, model_name, gen, out)
+            for k, n in counts.items():
+                train_counts[k] += n
+        capture_timing["cli_peak_gib"] = train_cli_capture_phase(
+            torch, kernels, Path(tmp)) / 2**30
+    print(f"  {card}")
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+
+    # the launches of the main paths' runs: the DDPM-1000 structure run
+    # (its capture), the server (its warmup's captures and 40 requests),
+    # the two trainers' eager train steps and their captured steps (each
+    # capture with its warm-up, and the replays)
+    for entry in record:
+        entry["launches"] = (main_counts[entry["name"]]
+                             + serve_counts[entry["name"]]
+                             + train_counts[entry["name"]])
+
     print(f"\nsampler seconds, replayed: {json.dumps(seconds)}")
     print(f"design seconds per batch: {json.dumps(design_seconds)}")
     print(f"serving: {json.dumps(serve_seconds)}")
     print(f"train steps: {json.dumps(train_timing)}")
     print(f"files to designs, seconds: {json.dumps(flow_seconds)}")
+    print(f"captured train steps: {json.dumps(capture_timing)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
     print(card)
@@ -1800,14 +1845,14 @@ def print_port_kernels(rows):
 
 
 def profile_train_steps(torch, kernels, out: Path, n_steps: int = 3):
-    """Device busy share of ``n_steps`` structure train steps at the
+    """Device busy share of ``n_steps`` eager structure train steps at the
     preset's full width (after 3 unprofiled ones), the kernels by device
-    time, and the port's kernels' share; the chrome trace goes to
-    ``out``."""
-    from torch.profiler import ProfilerActivity, profile
-
+    time, the port's kernels and the random draws, from the
+    utils/profiling.py digest of the trace written to ``out``."""
     from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils import profiling
     from e3diff_tpu_torch.utils.presets import structure_train_config
+    from e3diff_tpu_torch.utils.timing import profiler_trace
 
     cfg = structure_train_config(max_epochs=1)
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -1815,34 +1860,27 @@ def profile_train_steps(torch, kernels, out: Path, n_steps: int = 3):
     trainer = build_trainer("structure", cfg, "cuda", steps_per_epoch=10_000)
     for _ in range(3):
         trainer.train_step(batch, **draws)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with profiler_trace(str(out / "structure_train")) as path:
         for _ in range(n_steps):
             trainer.train_step(batch, **draws)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(getattr(e, "device_time_total", 0), e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    print(f"  {n_steps} steps: wall {wall_us / 1e3:.2f} ms, device busy "
-          f"{busy / 1e3:.2f} ms, idle {100 * (1 - busy / wall_us):.1f}%; per "
-          f"step device busy {busy / 1e3 / n_steps:.2f} ms")
-    for dev, count, key in rows[:15]:
-        print(f"  {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
-    print_port_kernels(rows)
+    trace = profiling.load_trace(path)
+    d = profiling.digest(trace, n_steps)
+    totals = profiling.device_op_totals(trace)
+    print(f"  {n_steps} steps: device busy "
+          f"{d['roofline']['ms_per_step']:.2f} ms a step, idle "
+          f"{100 * d['device_idle_share']:.1f}% of the trace's window")
+    for name, bucket, ms, calls, us in profiling.top_ops(totals, 15,
+                                                         n_steps):
+        print(f"  {ms:9.3f} ms {calls:7.0f}x  [{bucket}] {name[:80]}")
+    print_port_kernels([(info["us"], info["count"], name)
+                        for name, info in totals.items()])
     # random draws: the hidden Dropout modules' torch.rand (uniform) and the
     # attention cores' seeds (torch.randint); the keep bits themselves are
     # drawn inside the attention kernels
-    draws = [r for r in rows if re.search(r"distribution|random|uniform",
-                                          r[2], re.IGNORECASE)]
-    print(f"  dropout draws: {sum(r[0] for r in draws) / 1e3 / n_steps:.3f} "
-          f"ms a step in {sum(r[1] for r in draws) // n_steps} launches")
-    out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "structure_train_trace.json"))
+    n_draws = sum(i["count"] for k, i in totals.items()
+                  if profiling.bucket_of(k) == "random")
+    print(f"  dropout draws: {d['buckets'].get('random', 0.0):.3f} ms a step "
+          f"in {n_draws // n_steps} launches")
     del trainer
     torch.cuda.empty_cache()
 
@@ -2581,9 +2619,10 @@ def train_cli_phase(torch, kernels, run_root: Path):
                     "--ckpt_dir", f"{tmp}/{kind}"])
         secs = time.perf_counter() - t0
         counts = launch_counts(kernels)
-        want = with_zeros(kernels, {
-            k: PER_TRAIN_STEP[kind].get(k, 0) + PER_EVAL_STEP[kind].get(k, 0)
-            for k in (*PER_TRAIN_STEP[kind], *PER_EVAL_STEP[kind])})
+        # one batch: the step's capture (with its warm-up steps) and one
+        # replay, then an eager eval step
+        want = sum_counts(train_capture_launches(kernels, kind),
+                          with_zeros(kernels, PER_EVAL_STEP[kind]))
         print(f"  cli train_{kind}: {secs:.1f} s including the model "
               f"build and the checkpoints; history {hist}; launches "
               f"{counts}", flush=True)
@@ -2616,6 +2655,374 @@ def train_cli_phase(torch, kernels, run_root: Path):
           flush=True)
     check(counts == want, f"trained engine: launches {counts} != {want}")
     check_designs(results, requests, "trained checkpoints")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the train step captured as one CUDA graph
+# ---------------------------------------------------------------------------
+
+CAPTURE_STEPS = 20          # replays held to as many eager steps
+PROFILED_STEPS = 3
+CLI_EPOCHS = 2
+# the CUDA kernels each training wrapper launches, by name (bf16: the mma
+# kernels; f32: the others)
+TRAIN_KERNEL_OF = {
+    "attention_mma_kernel": "fused_attention_train",
+    "attention_f32_kernel": "fused_attention_train",
+    "attention_bwd_mma_kernel": "attention_backward",
+    "attention_bwd_dq_kernel": "attention_backward",
+    "layernorm_vec_kernel": "fused_layernorm",
+    "layernorm_any_kernel": "fused_layernorm",
+    "layernorm_bwd_vec_kernel": "layernorm_backward",
+    "layernorm_bwd_any_kernel": "layernorm_backward",
+}
+
+
+def train_capture_launches(kernels, kind, accum: int = 1) -> dict[str, int]:
+    """The launches of capturing one train step: WARMUP_CALLS eager steps
+    and the step under capture, each ``accum`` microbatches."""
+    from e3diff_tpu_torch.sampling.graphs import WARMUP_CALLS
+
+    return with_zeros(kernels, {k: (WARMUP_CALLS + 1) * accum * n
+                                for k, n in PER_TRAIN_STEP[kind].items()})
+
+
+def trace_train_kernels(trace, steps: int) -> dict[str, float]:
+    """The training wrappers' kernels in a profiler trace, by name, per
+    step."""
+    from e3diff_tpu_torch.utils import profiling
+
+    counts = dict.fromkeys(PER_TRAIN_STEP["structure"], 0.0)
+    for name, info in profiling.device_op_totals(trace).items():
+        m = profiling.PORT_KERNEL.search(name)
+        if m and m.group(1) in TRAIN_KERNEL_OF:
+            counts[TRAIN_KERNEL_OF[m.group(1)]] += info["count"] / steps
+    return counts
+
+
+def trainer_state(trainer) -> list:
+    """Every tensor a step updates: weights, moments, count, EMA."""
+    opt = trainer.optimizer
+    return [*opt.params, *opt.mu, *opt.nu, opt.count,
+            *(trainer.ema or [])]
+
+
+def timed_steps(torch, step, batch, n: int):
+    """``n`` calls of ``step(batch)``, each synchronised: the losses and
+    grad norms (read after each call, before the next: a replay rewrites
+    them) and the seconds of each."""
+    from e3diff_tpu_torch.utils.timing import device_timer
+
+    losses, norms, secs = [], [], {}
+    for i in range(n):
+        with device_timer(i, secs, log_fn=None):
+            m = step(batch)
+        losses.append(m["train_loss"].item())
+        norms.append(m["grad_norm"].item())
+    return losses, norms, [secs[i] for i in range(n)]
+
+
+def profiled_steps(torch, step, batch, out: Path, label: str,
+                   flops: float | None = None):
+    """A utils/timing.py::profiler_trace over PROFILED_STEPS calls and its
+    utils/profiling.py digest (``flops``: the GEMMs' operations of the
+    calls, where the trace has no host GEMM ops), printed; returns
+    (digest, trace)."""
+    from e3diff_tpu_torch.utils import profiling
+    from e3diff_tpu_torch.utils.timing import profiler_trace
+
+    with profiler_trace(str(out / label)) as path:
+        for _ in range(PROFILED_STEPS):
+            step(batch)
+    trace = profiling.load_trace(path)
+    d = profiling.digest(trace, PROFILED_STEPS, flops)
+    print(f"  {label}: device idle {100 * d['device_idle_share']:.1f}% of "
+          f"the trace's window; {d['roofline']}", flush=True)
+    print("    buckets, ms a step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in d["buckets"].items()), flush=True)
+    for name, bucket, ms, calls, us in profiling.top_ops(
+            profiling.device_op_totals(trace), n=6, steps=PROFILED_STEPS):
+        print(f"    {ms:8.3f} ms {calls:6.0f}x {us:8.2f} us  [{bucket}] "
+              f"{name[:80]}")
+    return d, trace
+
+
+def state_name(names: list[str], i: int) -> str:
+    """The ``i``-th tensor of trainer_state by name."""
+    n = len(names)
+    if i == 3 * n:
+        return "count"
+    part = ("param", "mu", "nu", "count", "ema")[i // n if i < 3 * n else 4]
+    return f"{part} {names[(i - (1 if i > 3 * n else 0)) % n]}"
+
+
+def train_run(torch, kernels, build, batch, draws, n, *, capture: bool,
+              profile: Path | None = None, label: str = ""):
+    """``n`` steps of a trainer from ``build()`` on ``batch`` (with the
+    injected ``draws``): eager, or replays of its captured step. Returns
+    the losses, grad norms and seconds of each step, the peak memory from
+    the build on (a capture's included: its copy of the state and its
+    warm-up steps) and the memory reserved after the steps, the final
+    state copied to the host, and for a capture its seconds, its launches
+    by name, its peak memory and the kernels' launches from the capture
+    to the last replay; with ``profile``, the digest of
+    PROFILED_STEPS more steps and the training kernels a step ran by name
+    in their trace."""
+    trainer = build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = {"names": trainer.optimizer.names}
+    if capture:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        step = trainer.capture(batch, **draws)
+        torch.cuda.synchronize()
+        r["capture_s"] = time.perf_counter() - t0
+        r["launches"] = step.launches
+        r["capture_peak"] = torch.cuda.max_memory_allocated()
+        r["gemm_flops"] = step.gemm_flops
+
+        def call(b):
+            return step({**b, **draws})
+    else:
+        def call(b):
+            return trainer.train_step(b, **draws)
+    r["losses"], r["norms"], r["secs"] = timed_steps(torch, call, batch, n)
+    r["counts"] = launch_counts(kernels)
+    # a replay allocates nothing: its graph's pool was allocated at the
+    # capture, and stays reserved
+    r["peak"] = torch.cuda.max_memory_allocated()
+    r["reserved"] = torch.cuda.memory_reserved()
+    r["state"] = [t.detach().cpu() for t in trainer_state(trainer)]
+    if profile is not None:
+        r["digest"], trace = profiled_steps(
+            torch, call, batch, profile, label,
+            PROFILED_STEPS * step.gemm_flops if capture else None)
+        r["ran"] = trace_train_kernels(trace, PROFILED_STEPS)
+        if not capture:
+            from e3diff_tpu_torch.utils import profiling
+            r["gemm_flops"] = profiling.gemm_flops(trace) / PROFILED_STEPS
+    if capture:
+        step.close()
+    return r
+
+
+def compare_runs(torch, label, a, b) -> list[str]:
+    """What differs, bit for bit, between two train_run results."""
+    differ = []
+    if a["losses"] != b["losses"]:
+        differ.append(f"losses {a['losses']} != {b['losses']}")
+    if a["norms"] != b["norms"]:
+        differ.append(f"grad norms {a['norms']} != {b['norms']}")
+    bad = [i for i, (x, y) in enumerate(zip(a["state"], b["state"]))
+           if not torch.equal(x, y)]
+    if bad or len(a["state"]) != len(b["state"]):
+        differ.append(f"{len(bad)} of {len(a['state'])} state tensors, "
+                      "first " + ", ".join(state_name(a["names"], i)
+                                           for i in bad[:3]))
+    print(f"  {label}: {'equal bit for bit' if not differ else differ}",
+          flush=True)
+    return differ
+
+
+def check_capture(kernels, kind, r, accum: int = 1):
+    """The capture launched one step's kernels (``accum`` microbatches),
+    and with its warm-up steps and the replays, as many again
+    WARMUP_CALLS times: replays launch nothing from Python."""
+    want = with_zeros(kernels, {k: accum * v
+                                for k, v in PER_TRAIN_STEP[kind].items()})
+    check(r["launches"] == want, f"{kind}: the capture launched "
+          f"{r['launches']}, not {want}")
+    check(r["counts"] == train_capture_launches(kernels, kind, accum),
+          f"{kind}: capture, warm-up and replays launched {r['counts']}")
+
+
+def captured_train_phase(torch, kernels, kind, gen, out: Path):
+    """Phase 12 for one model at its preset's full width (B=64, length
+    128, bf16 compute, f32 master weights, dropout 0.1, AdamW): 20 replays
+    of the captured step against 20 eager steps from one seed (weights,
+    batch, generator; every draw from the generator), bit for bit; the
+    launches at capture and by kernel name in profiled replays; the
+    times, peak memory and digests of both; and 2 captured steps with
+    accum_steps 2, cond_dropout 0.1 and an EMA against 2 eager ones.
+    Returns the kernels' launches of the main path (the capture with its
+    warm-up, and the replays) and the timings."""
+    import dataclasses
+
+    from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils.presets import (
+        sequence_train_config,
+        structure_train_config,
+    )
+
+    preset = (structure_train_config if kind == "structure"
+              else sequence_train_config)
+    cfg = preset(max_epochs=1)
+    batch, injected = train_batch(torch, cfg, gen, kind)
+
+    def build(c=cfg):
+        return build_trainer(kind, c, "cuda", steps_per_epoch=10_000)
+
+    runs = {}
+    for mode in ("eager", "captured"):
+        runs[mode] = train_run(torch, kernels, build, batch, {},
+                               CAPTURE_STEPS, capture=mode == "captured",
+                               profile=out, label=f"{kind}_train_{mode}")
+        torch.cuda.empty_cache()
+    cap = runs["captured"]
+    differ = compare_runs(
+        torch, f"{kind}: {CAPTURE_STEPS} replays against {CAPTURE_STEPS} "
+        f"eager steps, dropout {cfg.dropout_p}, every draw from the "
+        f"generator", runs["eager"], cap)
+    print(f"  {kind} losses {[round(x, 4) for x in cap['losses']]}",
+          flush=True)
+    if differ:
+        # do the draws make the difference? The same comparison at dropout
+        # 0 with t and the noise injected
+        c0 = dataclasses.replace(cfg, dropout_p=0.0)
+        r0 = [train_run(torch, kernels, lambda: build(c0), batch, injected,
+                        CAPTURE_STEPS, capture=c) for c in (False, True)]
+        differ0 = compare_runs(torch, f"{kind}: dropout 0, draws injected",
+                               *r0)
+        fail(f"{kind}: the captured step differs from the eager one "
+             f"({differ}); at dropout 0 with the draws injected: "
+             f"{differ0 or 'equal'}")
+    check_capture(kernels, kind, cap)
+    check(all(math.isfinite(x) for x in cap["losses"] + cap["norms"]),
+          f"{kind}: a loss or grad norm is not finite")
+    want = {k: float(PER_TRAIN_STEP[kind].get(k, 0)) for k in cap["ran"]}
+    print(f"  {kind}: a profiled replay ran {cap['ran']} (captured "
+          f"{ {k: v for k, v in cap['launches'].items() if v} })",
+          flush=True)
+    check(cap["ran"] == want, f"{kind}: a replay ran {cap['ran']}, not "
+          f"{want}")
+    # the GEMMs' operations of a step: counted in the capture's first
+    # warm-up call (a replay launches no op from the host), and from the
+    # eager steps' traced GEMM shapes
+    flops = {m: r["gemm_flops"] for m, r in runs.items()}
+    print(f"  {kind}: GEMM operations a step {flops}", flush=True)
+    check(flops["captured"] == flops["eager"] > 0,
+          f"{kind}: the capture counted {flops['captured']} GEMM operations "
+          f"a step, the eager steps' trace {flops['eager']}")
+    timing = {"capture_s": cap["capture_s"]}
+    for mode, r in runs.items():
+        s = statistics.median(r["secs"][TRAIN_WARMUP:])
+        roof = r["digest"]["roofline"]
+        tflops = roof["gemm_tflops_per_s"]
+        t = timing[mode] = {
+            "ms_per_step": s * 1e3, "samples_per_s": TRAIN_B / s,
+            "max_memory_allocated_gib": r["peak"] / 2**30,
+            "memory_reserved_gib": r["reserved"] / 2**30,
+            "device_idle_share": r["digest"]["device_idle_share"],
+            "device_ms_per_step": roof["ms_per_step"],
+            "gemm_ms_per_step": roof["gemm_ms_per_step"],
+            "gemm_tflops_per_s": tflops}
+        print(f"  {kind} {mode} train step: {t['ms_per_step']:.2f} ms "
+              f"(median of {CAPTURE_STEPS - TRAIN_WARMUP} after "
+              f"{TRAIN_WARMUP}), {t['samples_per_s']:.1f} samples/s, "
+              f"max_memory_allocated {t['max_memory_allocated_gib']:.2f} "
+              f"GiB, memory_reserved {t['memory_reserved_gib']:.2f} GiB; "
+              f"profiled: device {t['device_ms_per_step']:.2f} ms a "
+              f"step, idle {100 * t['device_idle_share']:.1f}%, GEMMs "
+              f"{t['gemm_ms_per_step']:.2f} ms at "
+              f"{t['gemm_tflops_per_s'] or float('nan'):.1f} TFLOP/s",
+              flush=True)
+    print(f"  {kind}: the capture (its warm-up steps and the capture) took "
+          f"{cap['capture_s']:.2f} s, max_memory_allocated "
+          f"{cap['capture_peak'] / 2**30:.2f} GiB", flush=True)
+
+    # accumulated microbatches, conditioning dropout and an EMA
+    c2 = dataclasses.replace(cfg, accum_steps=2, cond_dropout=0.1,
+                             ema_decay=0.999)
+    r2 = [train_run(torch, kernels, lambda: build(c2), batch, {}, 2,
+                    capture=c) for c in (False, True)]
+    torch.cuda.empty_cache()
+    differ2 = compare_runs(
+        torch, f"{kind}: 2 captured steps with accum_steps 2, cond_dropout "
+        f"0.1, EMA against 2 eager steps", *r2)
+    check(not differ2, f"{kind} accumulated step: {differ2}")
+    check_capture(kernels, kind, r2[1], accum=2)
+    return cap["counts"], timing
+
+
+def file_hashes(run_dir: Path) -> dict[str, str]:
+    import hashlib
+
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(run_dir.glob("*.pt"))}
+
+
+def train_cli_capture_phase(torch, kernels, run_root: Path):
+    """Phase 12.3: the structure train CLI (captured on the card, with an
+    EMA) for 2 epochs with --profile_dir, snapshot saves on: the digest
+    printed, the trace written; 1 epoch then a resume for 1 more ends in
+    the same final.pt; the same 2 epochs under E3DIFF_SNAPSHOT_SAVES=0
+    write the same files. Returns the peak memory of the first run, its
+    capture and up to two snapshots of the state included."""
+    import os
+
+    from e3diff_tpu_torch.cli.train_structure import main as train_structure
+
+    args = ["--synthetic", "--synthetic_n", str(TRAIN_B * 5 // 2),
+            "--ema_decay", "0.999"]
+    runs = {}
+
+    def cli(name, epochs, extra=(), env=None):
+        d = run_root / name
+        log = io.StringIO()
+        old = os.environ.get("E3DIFF_SNAPSHOT_SAVES")
+        if env is not None:
+            os.environ["E3DIFF_SNAPSHOT_SAVES"] = env
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                hist = train_structure(args + ["--max_epochs", str(epochs),
+                                               "--ckpt_dir", str(d),
+                                               *extra])
+        finally:
+            if old is None:
+                os.environ.pop("E3DIFF_SNAPSHOT_SAVES", None)
+            else:
+                os.environ["E3DIFF_SNAPSHOT_SAVES"] = old
+        secs = time.perf_counter() - t0
+        print(f"  cli {name}: {secs:.1f} s, history "
+              f"{[{k: round(r[k], 4) for k in ('epoch', 'train_loss', 'val_loss', 'steps_per_sec', 'ckpt_wait_seconds')} for r in hist]}",
+              flush=True)
+        return log.getvalue()
+
+    profile = run_root / "profile"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    text = cli("snapshot", CLI_EPOCHS, ["--profile_dir", str(profile)])
+    peak = torch.cuda.max_memory_allocated()
+    digest = [ln for ln in text.splitlines() if ln.startswith("profile")]
+    for ln in digest:
+        print(f"  {ln[:300]}")
+    check(len(digest) == 2 and "device buckets" in digest[0]
+          and (profile / "trace.json").is_file(),
+          "cli --profile_dir printed no digest or wrote no trace")
+    check("'gemm_tflops_per_s': None" not in digest[1],
+          "cli --profile_dir: the digest has no GEMM TFLOP/s")
+    print(f"  cli snapshot run: max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"(a step, its captured graph and up to two state snapshots)",
+          flush=True)
+    runs["snapshot"] = file_hashes(run_root / "snapshot")
+    shutil.rmtree(profile)
+    cli("resumed", 1)
+    text = cli("resumed", CLI_EPOCHS)
+    check("resumed from epoch 1" in text, "the second call did not resume")
+    runs["resumed"] = file_hashes(run_root / "resumed")
+    shutil.rmtree(run_root / "resumed")
+    cli("synchronous", CLI_EPOCHS, env="0")
+    runs["synchronous"] = file_hashes(run_root / "synchronous")
+    shutil.rmtree(run_root / "synchronous")
+    shutil.rmtree(run_root / "snapshot")
+    print(f"  sha256 of the files: {json.dumps(runs)}", flush=True)
+    check(runs["resumed"]["final.pt"] == runs["snapshot"]["final.pt"],
+          "1 epoch + resume ends in another final.pt than 2 epochs")
+    check(runs["synchronous"] == runs["snapshot"],
+          "synchronous saves wrote other files than snapshot saves")
+    return peak
 
 
 # ---------------------------------------------------------------------------

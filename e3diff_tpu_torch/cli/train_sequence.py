@@ -4,6 +4,10 @@ scripts/train_sequence.py; sequence_model/train_model.py). Writes
 <ckpt_dir>/config.json, last.pt, best_val_model.pt, final.pt (and
 final_ema.pt with --ema_decay) and history.json.
 
+On the card each train step is a replay of the step captured as one CUDA
+graph; --profile_dir DIR profiles one epoch, writes DIR/trace.json and
+prints its digest.
+
 Example:
     python -m e3diff_tpu_torch.cli.train_sequence --synthetic \\
         --ckpt_dir runs/sequence --max_epochs 2

@@ -1,6 +1,7 @@
 """CUDA graphs of the samplers' calls (they stand for the bodies of the
 JAX package's jitted ``lax.scan`` samplers, e3diff_tpu/sampling/
-structure.py and sequence.py).
+structure.py and sequence.py) and of the trainers' train step
+(training/trainer.py::CapturedStep, for the jitted train_step).
 
 A ``CapturedCall`` captures one call -- a pocket encoding, one reverse
 step, the last sequence forward -- over static device buffers, by the
@@ -41,22 +42,34 @@ class CapturedCall:
     device work. ``out`` is what ``fn`` returned at capture (tensors in the
     graph's pool, rewritten by every replay). ``reset`` runs before each
     warm-up call, to put the buffers ``fn`` advances (a step index) back
-    in range."""
+    in range. ``grad`` captures with autograd on (a train step's forward
+    and backward), else under ``no_grad``. Each of ``generators`` (CUDA
+    ``torch.Generator``s that ``fn`` draws from) is registered with the
+    graph, so that every replay draws the next values of its Philox
+    sequence, as an eager call would."""
 
-    def __init__(self, fn: Callable, *, pool, reset: Callable | None = None):
+    def __init__(self, fn: Callable, *, pool, reset: Callable | None = None,
+                 grad: bool = False, generators: tuple = ()):
         self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            if not hasattr(self.graph, "register_generator_state"):
+                raise RuntimeError(
+                    f"torch {torch.__version__} cannot capture draws from "
+                    "a torch.Generator of the caller's "
+                    "(CUDAGraph.register_generator_state is missing)")
+            self.graph.register_generator_state(gen)
         capture = torch.cuda.graph(self.graph, pool=pool,
                                    capture_error_mode="thread_local")
         side = capture.capture_stream
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), torch.no_grad():
+        with torch.cuda.stream(side), torch.set_grad_enabled(grad):
             for _ in range(WARMUP_CALLS):
                 if reset is not None:
                     reset()
                 fn()
         torch.cuda.current_stream().wait_stream(side)
         before = _launch_counts()
-        with torch.no_grad(), capture:
+        with torch.set_grad_enabled(grad), capture:
             self.out = fn()
         after = _launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}

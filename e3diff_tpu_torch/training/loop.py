@@ -2,6 +2,14 @@
 reference's Lightning Trainer use, structure_model/train_model.py:99-116):
 train and validation epochs, epoch means of the metrics, the best-on-val
 slot, the resumable ``last`` slot and the final weights.
+
+On a CUDA device every train step is a replay of the trainer's step
+captured as a CUDA graph (Trainer.capture) at the first batch of each
+shape, as ``jax.jit`` compiles once per shape; a step that cannot be
+captured raises. On the CPU the steps run eagerly. The eval step runs
+eagerly on both. ``profile_dir`` profiles the train steps of one epoch
+(the second of the run, or its only one) and prints their digest
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -13,16 +21,55 @@ from typing import Callable, Iterable
 import torch
 
 from e3diff_tpu_torch.data.prefetch import prefetch_to_device, to_device
+from e3diff_tpu_torch.sampling.graphs import WARMUP_CALLS
 from e3diff_tpu_torch.training.checkpoint import BestTracker, CheckpointManager
+from e3diff_tpu_torch.utils import profiling
+from e3diff_tpu_torch.utils.timing import profiler_trace
 
 
-def mean_metrics(history: list[dict]) -> dict:
-    """Epoch means with one device-to-host copy per metric: the steps'
-    0-d tensors are stacked and averaged on the device."""
-    if not history:
-        return {}
-    return {k: torch.stack([h[k].float() for h in history]).mean().item()
-            for k in history[0]}
+class MetricSums:
+    """Epoch means of the steps' metrics: each step's 0-d tensors are added
+    on the device into sums as the step returns them (a captured step
+    rewrites the same tensors at its next replay), and ``means()`` copies
+    them to the host once."""
+
+    def __init__(self):
+        self.sums: dict[str, torch.Tensor] = {}
+        self.n = 0
+
+    def add(self, metrics: dict) -> None:
+        values = [v.detach().float() for v in metrics.values()]
+        if not self.sums:
+            self.sums = dict(zip(metrics, (v.clone() for v in values)))
+        else:
+            torch._foreach_add_(list(self.sums.values()), values)
+        self.n += 1
+
+    def means(self) -> dict:
+        if not self.n:
+            return {}
+        means = (torch.stack(list(self.sums.values())) / self.n).tolist()
+        return dict(zip(self.sums, means))
+
+
+def log_profile_digest(path: str, n_steps: int,
+                       log_fn: Callable[[str], None],
+                       flops: float | None = None) -> None:
+    """Print the digest of a profiled epoch's trace (``flops``: its GEMMs'
+    operations, for captured steps); a trace that cannot be read is
+    reported and never stops training."""
+    try:
+        d = profiling.digest(profiling.load_trace(path), max(n_steps, 1),
+                             flops)
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        log_fn(f"profile digest unavailable: {type(e).__name__}: {e}")
+        return
+    where = "device" if d["on_device"] else "host (a CPU run)"
+    log_fn(f"profile [{path}] {where} buckets (ms/step): "
+           + ", ".join(f"{k}={v:.3f}" for k, v in d["buckets"].items()))
+    idle = d["device_idle_share"]
+    log_fn(f"profile roofline: {d['roofline']}; device idle "
+           + ("not measured" if idle is None else f"{100 * idle:.1f}%"))
 
 
 def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
@@ -30,12 +77,14 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
                max_epochs: int, device, ckpt_dir: str | None = None,
                ckpt_mode: str = "max", ckpt_every: int = 1,
                log_every: int = 30, log_fn: Callable[[str], None] = print,
-               resume: bool = True, prefetch: int = 2) -> list[dict]:
+               resume: bool = True, prefetch: int = 2,
+               profile_dir: str | None = None) -> list[dict]:
     """Train ``trainer`` (a StructureTrainer or SequenceTrainer) to
     ``max_epochs``; returns one record per epoch run. ``train_batches(epoch)``
     and ``val_batches()`` yield numpy batches, copied to ``device`` by a
     background thread ``prefetch`` batches ahead (0: in line).
     ``steps_per_sec`` leaves out the first step of the epoch."""
+    device = torch.device(device)
     manager = best = None
     start_epoch = 0
     if ckpt_dir is not None:
@@ -54,37 +103,65 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
             return prefetch_to_device(batches, device, size=prefetch)
         return (to_device(b, device) for b in batches)
 
+    captured = {}   # batch shapes -> CapturedStep
+    pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+    # the GEMMs' operations of the epoch's captured steps, their warm-up
+    # steps included: a trace of replays shows none (utils/profiling.py)
+    gemm_flops = 0.0
+
+    def train_step(batch):
+        nonlocal gemm_flops
+        if device.type != "cuda":
+            return trainer.train_step(batch)
+        key = tuple((k, tuple(v.shape)) for k, v in batch.items())
+        if key not in captured:
+            captured[key] = trainer.capture(batch, pool=pool)
+            gemm_flops += WARMUP_CALLS * captured[key].gemm_flops
+        gemm_flops += captured[key].gemm_flops
+        return captured[key](batch)
+
+    # the second epoch of this run (past the capture), or its only one
+    profile_epoch = (start_epoch + 1 if max_epochs - start_epoch > 1
+                     else start_epoch)
     history = []
     for epoch in range(start_epoch, max_epochs):
-        epoch_metrics = []
+        sums = MetricSums()
+        gemm_flops = 0.0
         t_epoch = time.perf_counter()
         t_first_done = None
-        for i, batch in enumerate(staged(train_batches(epoch))):
-            metrics = trainer.train_step(batch)
-            if i == 0:
-                metrics["train_loss"].item()  # a host sync: the first step
-                t_first_done = time.perf_counter()
-            epoch_metrics.append(metrics)
-            if log_every and i % log_every == 0:
-                log_fn(f"epoch {epoch} step {i}: "
-                       f"loss={metrics['train_loss'].item():.4f}")
-        if not epoch_metrics:
-            raise ValueError(
-                f"train_batches yielded no batch for epoch {epoch}: the "
-                "train split is smaller than batch_size under drop_last, "
-                "and training would save untrained weights. Lower "
-                "--batch_size or enlarge the dataset.")
-        train_means = mean_metrics(epoch_metrics)   # syncs every step
+        with profiler_trace(profile_dir if epoch == profile_epoch
+                            else None) as trace_path:
+            for i, batch in enumerate(staged(train_batches(epoch))):
+                metrics = train_step(batch)
+                sums.add(metrics)
+                if i == 0:
+                    metrics["train_loss"].item()  # a host sync: the first step
+                    t_first_done = time.perf_counter()
+                if log_every and i % log_every == 0:
+                    log_fn(f"epoch {epoch} step {i}: "
+                           f"loss={metrics['train_loss'].item():.4f}")
+            n_steps = sums.n
+            if not n_steps:
+                raise ValueError(
+                    f"train_batches yielded no batch for epoch {epoch}: the "
+                    "train split is smaller than batch_size under drop_last, "
+                    "and training would save untrained weights. Lower "
+                    "--batch_size or enlarge the dataset.")
+            train_means = sums.means()   # waits for every step
         t_train_done = time.perf_counter()
-        n_steps = len(epoch_metrics)
+        if trace_path is not None:
+            log_profile_digest(trace_path, n_steps, log_fn,
+                               gemm_flops if captured else None)
         steps_per_sec = ((n_steps - 1) / max(t_train_done - t_first_done,
                                              1e-9) if n_steps > 1 else 0.0)
         log_fn(f"Training Loss:{train_means.get('train_loss', math.nan)}")
 
         val_means = {}
         if val_batches is not None:
-            val_means = mean_metrics([trainer.eval_step(b)
-                                      for b in staged(val_batches())])
+            val_sums = MetricSums()
+            for b in staged(val_batches()):
+                val_sums.add(trainer.eval_step(b))
+            val_means = val_sums.means()
             if val_means:
                 log_fn(f"Validation Loss:{val_means['val_loss']}")
 
@@ -103,9 +180,12 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
                                       "epoch": epoch, "best": best.best})
             record["ckpt_wait_seconds"] = time.perf_counter() - t_ckpt
 
+    for step in captured.values():
+        step.close()
     if manager is not None:
         manager.save("final", trainer.weights())
         ema = trainer.ema_weights()
         if ema is not None:
             manager.save("final_ema", ema)
+        manager.close()   # every file is written before the loop returns
     return history

@@ -54,12 +54,36 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def schedule_table(schedule: Callable[[int], float], steps: int,
+                   steps_per_epoch: int, b1: float, b2: float) -> np.ndarray:
+    """(steps + 1, 3) float32 rows (lr(r), 1 - b1^(r+1), 1 - b2^(r+1)) for
+    the step counts r = 0..steps: what the update of step r reads. Each
+    power is numpy's float32 scalar power, as the host arithmetic took it
+    (numpy's vectorised power differs from it in the last place)."""
+    f32 = np.float32
+    per_epoch = [schedule(e * steps_per_epoch)
+                 for e in range(steps // steps_per_epoch + 1)]
+    table = np.empty((steps + 1, 3), np.float32)
+    table[:, 0] = np.repeat(per_epoch, steps_per_epoch)[:steps + 1]
+    for r in range(steps + 1):
+        c = f32(r + 1)
+        table[r, 1] = f32(1) - f32(b1) ** c
+        table[r, 2] = f32(1) - f32(b2) ** c
+    return table
+
+
 class AdamW:
     """optax.chain(clip_by_global_norm, adamw) over ``params`` (name ->
     Parameter). ``step(grads)`` applies one update in place and returns
-    the gradients' global norm before clipping. The moments are tensors
-    on the parameters' device; ``state_dict`` / ``load_state_dict`` carry
-    them and the count for a resume."""
+    the gradients' global norm before clipping.
+
+    Every piece of state lives in device tensors that the step updates in
+    place, so that a CUDA graph of the step stays bound to it: the moments,
+    the step ``count`` (int64) and the ``table`` of schedule_table rows for
+    every step of the run, which the step reads at ``count`` (a count past
+    the run reads the last row, where the learning rate is 0).
+    ``state_dict`` / ``load_state_dict`` carry the moments and the count
+    for a resume; loading copies into the same tensors."""
 
     def __init__(self, params: dict[str, nn.Parameter], *,
                  base_lr: float = 5e-5, weight_decay: float = 0.1,
@@ -75,10 +99,18 @@ class AdamW:
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu_dtype = torch.bfloat16 if mu_dtype == "bf16" else None
-        self.count = 0
+        device = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+        self.table = torch.from_numpy(schedule_table(
+            self.schedule, max_epochs * steps_per_epoch, steps_per_epoch,
+            b1, b2)).to(device)
         self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                    for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        # b1 mu in mu's own dtype, as optax's weak-typed scalar gives: under
+        # mu_dtype bf16 both b1 and the product are rounded to bf16; the
+        # sum is f32
+        self._b1_mu = float(torch.tensor(b1, dtype=self.mu[0].dtype))
 
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor]) -> torch.Tensor:
@@ -90,43 +122,44 @@ class AdamW:
         keep = norm < self.grad_clip
         grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
         b1, b2 = self.b1, self.b2
-        # b1 mu in mu's own dtype, as optax's weak-typed scalar gives: under
-        # mu_dtype bf16 both b1 and the product are rounded to bf16; the
-        # sum is f32
-        b1_mu = float(torch.tensor(b1, dtype=self.mu[0].dtype))
-        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
-                                torch._foreach_mul(self.mu, b1_mu))
-        nu = torch._foreach_add(
-            torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
-            torch._foreach_mul(self.nu, b2))
-        lr = self.schedule(self.count)
-        self.count += 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(b1) ** f32(self.count))
-        bc2 = float(f32(1) - f32(b2) ** f32(self.count))
+        row = self.table.index_select(
+            0, self.count.clamp(max=len(self.table) - 1).reshape(1))[0]
+        lr, bc1, bc2 = row.unbind()
+        self.count.add_(1)
+        g1 = torch._foreach_mul(grads, 1 - b1)
+        if self.mu_dtype is None:
+            torch._foreach_mul_(self.mu, b1)
+            torch._foreach_add_(self.mu, g1)
+            mu = self.mu
+        else:   # the update reads the f32 sum, the buffer keeps it rounded
+            mu = torch._foreach_add(g1, torch._foreach_mul(self.mu,
+                                                           self._b1_mu))
+            torch._foreach_copy_(self.mu, mu)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1 - b2))
         denom = torch._foreach_add(torch._foreach_sqrt(
-            torch._foreach_div(nu, bc2)), self.eps)
+            torch._foreach_div(self.nu, bc2)), self.eps)
         updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
         if self.weight_decay:
             updates = torch._foreach_add(
                 updates, torch._foreach_mul(self.params, self.weight_decay))
         torch._foreach_add_(self.params, torch._foreach_mul(updates, -lr))
-        self.mu = [m if self.mu_dtype is None else m.to(self.mu_dtype)
-                   for m in mu]
-        self.nu = list(nu)
         return norm
 
     def state_dict(self) -> dict:
+        """The live tensors (as nn.Module.state_dict gives them): a save
+        copies them."""
         return {"count": self.count,
                 "mu": dict(zip(self.names, self.mu)),
                 "nu": dict(zip(self.names, self.nu))}
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        self.count = int(state["count"])
-        self.mu = [state["mu"][n].to(m.device, m.dtype)
-                   for n, m in zip(self.names, self.mu)]
-        self.nu = [state["nu"][n].to(v.device, v.dtype)
-                   for n, v in zip(self.names, self.nu)]
+        self.count.fill_(int(state["count"]))
+        for n, m, v in zip(self.names, self.mu, self.nu):
+            m.copy_(state["mu"][n])
+            v.copy_(state["nu"][n])
 
 
 def accumulated_grads(loss_fn, params: list[torch.Tensor], batch: dict,

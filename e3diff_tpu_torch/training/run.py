@@ -38,6 +38,10 @@ def build_parser(kind: str, description: str) -> argparse.ArgumentParser:
                    help="train on synthetic complexes (no BioLiP needed)")
     p.add_argument("--synthetic_n", type=int, default=64)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--profile_dir", default=None,
+                   help="profile the train steps of one epoch (the second "
+                        "of the run, or its only one) with torch.profiler, "
+                        "write DIR/trace.json and print its digest")
     add_config_flags(p, PRESETS[kind]())
     return p
 
@@ -118,7 +122,8 @@ def run(kind: str, argv=None, description: str = "") -> list[dict]:
     history = train_loop(
         trainer, train_batches, lambda: val_ds.batches(cfg.batch_size),
         max_epochs=cfg.max_epochs, device=device, ckpt_dir=args.ckpt_dir,
-        ckpt_mode=cfg.ckpt_mode, ckpt_every=cfg.ckpt_every)
+        ckpt_mode=cfg.ckpt_mode, ckpt_every=cfg.ckpt_every,
+        profile_dir=args.profile_dir)
     if not history:
         print("done; no epochs to run (already trained to max_epochs)")
         return history

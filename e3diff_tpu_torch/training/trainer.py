@@ -1,18 +1,24 @@
 """What the two trainers share: the train step (accumulated gradients
-through the kernels, clipping and AdamW, EMA), the eval step, the
-resumable state and the reference-layout weights."""
+through the kernels, clipping and AdamW, EMA), eager or captured as one
+CUDA graph (the counterpart of the JAX package's jitted train_step), the
+eval step, the resumable state and the reference-layout weights."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
 
 from e3diff_tpu_torch.models.blocks import set_dropout_generator
+from e3diff_tpu_torch.sampling.graphs import CapturedCall, fill_static
+from e3diff_tpu_torch.training.checkpoint import map_tensors
 from e3diff_tpu_torch.training.optim import (
     AdamW,
     accumulated_grads,
     ema_update,
 )
+from e3diff_tpu_torch.utils.profiling import count_gemm_flops
 
 
 class Trainer:
@@ -64,16 +70,36 @@ class Trainer:
         """One optimizer step; returns the step's metrics as 0-d tensors on
         the device (no host sync): the loss and its parts, and
         ``grad_norm``, the gradients' global norm before clipping."""
+        return self._step(self._with_draws(batch, draws))
+
+    def _step(self, batch: dict) -> dict:
         self.model.train()
         loss, aux, grads = accumulated_grads(
-            self._loss, self.optimizer.params, self._with_draws(batch, draws),
-            self.accum_steps)
+            self._loss, self.optimizer.params, batch, self.accum_steps)
         grad_norm = self.optimizer.step(grads)
         if self.ema is not None:
             ema_update(self.ema, self.optimizer.params, self.ema_decay)
         metrics = self._metrics("train", loss, aux)
         metrics["grad_norm"] = grad_norm
         return metrics
+
+    def capture(self, batch: dict, *, pool=None, **draws) -> "CapturedStep":
+        """The train step captured as one CUDA graph for batches of
+        ``batch``'s keys and shapes (and these injected draws' names): see
+        CapturedStep. ``pool``: the graph's memory pool (one of its own by
+        default). A step that cannot be captured raises."""
+        return CapturedStep(self, self._with_draws(batch, draws), pool=pool)
+
+    @contextlib.contextmanager
+    def restored(self):
+        """Put the trainer's state (weights, moments, count, EMA,
+        generator) back on exit as it was on entry, in the same tensors;
+        the copy lives on the device meanwhile."""
+        saved = map_tensors(self.state_dict(), torch.clone)
+        try:
+            yield
+        finally:
+            self.load_state_dict(saved)
 
     @torch.no_grad()
     def eval_step(self, batch: dict, **draws) -> dict:
@@ -99,9 +125,12 @@ class Trainer:
         return out
 
     def state_dict(self) -> dict:
-        """Everything a resume needs: weights, optimizer, EMA, generator."""
+        """Everything a resume needs: weights, optimizer, EMA, generator;
+        the live tensors on the device, as nn.Module.state_dict gives
+        them (CheckpointManager.save copies them)."""
         return {
-            "model": self.weights(),
+            "model": {k: v.detach()
+                      for k, v in self.model.state_dict().items()},
             "optimizer": self.optimizer.state_dict(),
             "ema": (None if self.ema is None else
                     dict(zip(self.optimizer.names, self.ema))),
@@ -109,9 +138,12 @@ class Trainer:
                           else self.generator.get_state()),
         }
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        with torch.no_grad():
-            self.model.load_state_dict(state["model"], strict=True)
+        """Copy ``state`` (state_dict's, from any device) into the
+        trainer's own tensors, which keep their storage: a captured step
+        goes on reading them."""
+        self.model.load_state_dict(state["model"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         if (state["ema"] is None) != (self.ema is None):
             raise ValueError("the checkpoint's EMA does not match ema_decay")
@@ -120,3 +152,64 @@ class Trainer:
                 e.copy_(state["ema"][name])
         if self.generator is not None and state["generator"] is not None:
             self.generator.set_state(state["generator"])
+
+
+class CapturedStep:
+    """A trainer's train step captured as one CUDA graph: the forward,
+    ``accumulated_grads`` (every microbatch), clipping, AdamW and the EMA,
+    over static device copies of one batch's tensors (and its injected
+    draws). Calling it with a batch of the same keys and shapes copies the
+    batch in, replays the graph, and returns ``metrics``: the step's
+    metrics as static tensors, which the next call rewrites.
+
+    Every draw of the step comes from the trainer's generator, which the
+    graph registers: each replay draws the values the next eager step
+    would. The warm-up calls before the capture take real steps, inside
+    ``trainer.restored()``: the first replay is the trainer's next step.
+    ``launches``: the kernels' launches at the capture, by name.
+    ``gemm_flops``: the GEMMs' operations in a step, counted in the first
+    warm-up call (utils/profiling.py::count_gemm_flops), for the digest of
+    replays."""
+
+    def __init__(self, trainer: Trainer, batch: dict, *, pool=None):
+        if trainer.generator is None:
+            raise ValueError("capturing a train step needs the trainer's "
+                             "generator")
+        device = trainer.optimizer.params[0].device
+        self.static = {}
+        for k, v in batch.items():
+            self.static[k] = torch.empty(tuple(v.shape), dtype=v.dtype,
+                                         device=device)
+            fill_static(self.static[k], v)
+        flops = []
+
+        def step():
+            if flops:
+                return trainer._step(self.static)
+            out, n = count_gemm_flops(lambda: trainer._step(self.static))
+            flops.append(n)
+            return out
+
+        with trainer.restored():
+            self.call = CapturedCall(step, pool=pool, grad=True,
+                                     generators=(trainer.generator,))
+        self.gemm_flops = flops[0]
+        self.metrics = self.call.out
+        self.launches = self.call.launches
+
+    def __call__(self, batch: dict) -> dict:
+        if batch.keys() != self.static.keys():
+            raise ValueError(f"captured for the keys {sorted(self.static)}, "
+                             f"given {sorted(batch)}")
+        for k, v in batch.items():
+            if tuple(v.shape) != tuple(self.static[k].shape):
+                raise ValueError(f"{k}: captured for shape "
+                                 f"{tuple(self.static[k].shape)}, given "
+                                 f"{tuple(v.shape)}")
+            fill_static(self.static[k], v)
+        self.call.replay()
+        return self.metrics
+
+    def close(self) -> None:
+        self.call.close()
+        self.metrics = None

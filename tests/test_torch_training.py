@@ -753,6 +753,57 @@ def test_train_cli_resumes_and_refuses_another_run(trained, capsys):
     assert "adopted from config.json: num_heads=4" in capsys.readouterr().out
 
 
+def test_train_cli_profile_dir_writes_a_trace_and_prints_its_digest(
+        trained, tmp_path, capsys):
+    """--profile_dir profiles the run's only epoch: DIR/trace.json, a
+    Chrome trace, and the digest's two lines (a CPU run: host buckets, no
+    idle share); the runs without the flag wrote no trace."""
+    from e3diff_tpu_torch.cli.train_structure import main as train_structure
+
+    prof = tmp_path / "prof"
+    train_structure(TINY + ["--max_epochs", "1", "--timesteps", "20",
+                            "--ckpt_dir", str(tmp_path / "run"),
+                            "--profile_dir", str(prof)])
+    out = capsys.readouterr().out
+    assert f"profile [{prof / 'trace.json'}] host (a CPU run) buckets " \
+           "(ms/step): " in out
+    assert "profile roofline: {'ms_per_step': " in out
+    assert "device idle not measured" in out
+    trace = json.loads((prof / "trace.json").read_text())
+    assert any(e.get("cat") == "cpu_op" for e in trace["traceEvents"])
+    root, _ = trained
+    assert not list(root.rglob("trace.json"))
+    assert sorted(p.name for p in (root / "structure").iterdir()) == [
+        "best_val_model.pt", "config.json", "final.pt", "final_ema.pt",
+        "history.json", "last.pt"]
+
+
+def test_snapshot_and_synchronous_saves_write_equal_files(tmp_path,
+                                                         monkeypatch):
+    """The train CLI with snapshot saves (the default) and under
+    E3DIFF_SNAPSHOT_SAVES=0: last.pt, best_val_model.pt, final.pt and
+    final_ema.pt equal byte for byte. One CPU thread: with several, the
+    plain path's table gradient (an indexed sum, parallel at this length)
+    may round differently from run to run."""
+    from e3diff_tpu_torch.cli.train_structure import main as train_structure
+
+    files = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for env in ("1", "0"):
+            monkeypatch.setenv("E3DIFF_SNAPSHOT_SAVES", env)
+            d = tmp_path / env
+            train_structure(TINY + ["--max_epochs", "2", "--timesteps", "20",
+                                    "--ckpt_dir", str(d)])
+            files[env] = {p.name: p.read_bytes() for p in d.glob("*.pt")}
+    finally:
+        torch.set_num_threads(threads)
+    assert sorted(files["1"]) == ["best_val_model.pt", "final.pt",
+                                  "final_ema.pt", "last.pt"]
+    assert files["1"] == files["0"]
+
+
 def test_final_checkpoints_serve_and_cross_to_jax(trained):
     """final.pt loads into the port (strict), into DesignEngine, and into
     the JAX package through port_*_state_dict with the same forward."""
