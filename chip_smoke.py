@@ -109,7 +109,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    structure train CLI, captured, for 2 epochs with --profile_dir (the
    digest printed, the trace written, the peak memory with the snapshot
    saves), 1 epoch and a resume for 1 more ending in the same final.pt,
-   and 2 epochs under E3DIFF_SNAPSHOT_SAVES=0 writing the same files.
+   and 2 epochs under E3DIFF_SNAPSHOT_SAVES=0 writing the same files;
+13. multi-device on one card, the ranks spawned onto cuda:0 with seeded
+   full-width weights: (a) dp=2 over gloo, 3 eager structure train steps
+   at the preset (B=64, 32 a rank, length 128, bf16, dropout 0.1) against
+   the one-process bf16 and f32 runs from the same seed (losses, grad
+   norms, first moments, weights), the ranks' weights bit for bit equal,
+   the hidden dropout draws' cost at the global shape, and (f)
+   DesignEngine(mesh=) over phase 9's final.pt files, rank 0 leading a
+   design batch of 32 and rank 1 following; (b) tp=2 over gloo, the same
+   steps (6 heads a rank), the replicated tensors bit for bit equal, the
+   keep bits a rank's attention kernels and e3d_dropout_keep draw at its
+   block against dropout_keep_plain's, exactly, and (c) tp=2 DDIM-25 and
+   D3PM-50 batches in f32, eager, against the one-process samples on the
+   same noise; (d) an NCCL world of one: the captured train step, its
+   all-reduces in the graph, against the mesh-free captured step over 3
+   replays, bit for bit; (e) the structure train CLI under
+   ``torch.distributed.run --nproc_per_node 2 ... --multihost --dp 2
+   --dist_backend gloo``, its final.pt with the one-process key set
+   serving DesignEngine.from_checkpoints. Each world's setup and step
+   times, gloo all-reduce ms a step and peak memory per rank are printed.
 
 The last three lines are the kernels' JSON record, the card, and
 ``{"ok": true, "device": {...}}``. The kernels' ``launches`` in the
@@ -117,7 +136,8 @@ record sum the main paths' runs: phase 6's DDPM-1000 int8 run (its
 capture included), phase 10's server (its warmup's captures and 40
 requests), phase 9's eager train steps and phase 12's captured ones
 (each capture with its warm-up steps; replays launch nothing from
-Python); phase 11 checks its own launches and adds none.
+Python), and phase 13's ranks' train steps, tp samplers and engine;
+phase 11 checks its own launches and adds none.
 
 Usage, from the root of a checkout:
     python3 chip_smoke.py              # what the checks above need
@@ -368,15 +388,15 @@ def compare(label, got, want, atol, rtol) -> float:
     return worst
 
 
-def attention_inputs(torch, gen, case, dtype):
-    """Seeded q, k, v, mask and table for one ``AttnCase``. A ragged mask
-    keeps a random prefix of 1..Lk keys, and a single key in every fourth
-    batch row; a dead row masks every key."""
+def attention_inputs(torch, gen, case, dtype, heads=HEADS):
+    """Seeded q, k, v (``heads`` heads wide), mask and table for one
+    ``AttnCase``. A ragged mask keeps a random prefix of 1..Lk keys, and a
+    single key in every fourth batch row; a dead row masks every key."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    b, lq, lk = case.b, case.lq, case.lk
-    q, k, v = randn(b, lq, HIDDEN), randn(b, lk, HIDDEN), randn(b, lk, HIDDEN)
+    b, lq, lk, width = case.b, case.lq, case.lk, heads * HEAD_DIM
+    q, k, v = randn(b, lq, width), randn(b, lk, width), randn(b, lk, width)
     mask = torch.zeros(b, lk, device="cuda")
     if case.ragged:
         lengths = torch.randint(1, lk + 1, (b,), generator=gen, device="cuda")
@@ -619,9 +639,11 @@ def plain_versions(kernels):
     inference kernels' and, for training, the differentiable paths', which
     autograd then differentiates (a dropout seed becomes its keep mask,
     ``dropout_keep_plain``)."""
-    def autograd_plain(q, k, v, mask, table, seed, p, *, num_heads, max_pos):
+    def autograd_plain(q, k, v, mask, table, seed, p, *, num_heads, max_pos,
+                       dropout_block=None):
         keep = None if seed is None else kernels.dropout_keep_plain(
-            seed, (q.shape[0], num_heads, q.shape[1], k.shape[1]), p)
+            seed, (q.shape[0], num_heads, q.shape[1], k.shape[1]), p,
+            dropout_block)
         return kernels.attention_autograd_plain(
             q, k, v, mask, table, keep, p, num_heads=num_heads,
             max_pos=max_pos)
@@ -1042,7 +1064,6 @@ def main(argv=None) -> int:
     flow_seconds = files_to_designs_phase(torch, kernels, model,
                                           Path(runs.name), card,
                                           design_seconds)
-    runs.cleanup()
     flow_seconds["phase"] = time.perf_counter() - t0
     print(f"  phase 11 took {flow_seconds['phase']:.1f} s")
 
@@ -1068,14 +1089,28 @@ def main(argv=None) -> int:
     print(f"  {card}")
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
+    # 13 --------------------------------------------------------------
+    phase("13. multi-device on one card: dp=2 and tp=2 ranks over gloo, "
+          "an NCCL world of one captured, the train CLI under "
+          "torch.distributed.run, DesignEngine(mesh=)")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    par_counts, par_numbers = multidevice_phase(torch, kernels, card,
+                                                Path(runs.name))
+    runs.cleanup()
+    par_numbers["phase"] = time.perf_counter() - t0
+    print(f"  phase 13 took {par_numbers['phase']:.1f} s")
+
     # the launches of the main paths' runs: the DDPM-1000 structure run
     # (its capture), the server (its warmup's captures and 40 requests),
     # the two trainers' eager train steps and their captured steps (each
-    # capture with its warm-up, and the replays)
+    # capture with its warm-up, and the replays), and phase 13's ranks'
+    # (their train steps, tp samplers and the mesh engine)
     for entry in record:
         entry["launches"] = (main_counts[entry["name"]]
                              + serve_counts[entry["name"]]
-                             + train_counts[entry["name"]])
+                             + train_counts[entry["name"]]
+                             + par_counts[entry["name"]])
 
     print(f"\nsampler seconds, replayed: {json.dumps(seconds)}")
     print(f"design seconds per batch: {json.dumps(design_seconds)}")
@@ -1083,6 +1118,7 @@ def main(argv=None) -> int:
     print(f"train steps: {json.dumps(train_timing)}")
     print(f"files to designs, seconds: {json.dumps(flow_seconds)}")
     print(f"captured train steps: {json.dumps(capture_timing)}")
+    print(f"multi-device: {json.dumps(par_numbers)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
     print(card)
@@ -1915,6 +1951,12 @@ TRAIN_ATTN_CASES = [
     AttnCase("off-tile 8x100x77", 8, 100, 77, TRAIN_L, False, True),
 ]
 TRAIN_LN_ROWS = [TRAIN_B * TRAIN_L, 512]
+# A dp=2 x tp=2 rank's attention (phase 13): its 32 of 64 batch rows and
+# 6 of 12 heads, general inputs, drawing the second rows' and heads' block
+# of the one-device bits.
+TP_ATTN_CASE = AttnCase("tp rank 32x128x128 +table, block (32, 64, 6, 12)",
+                        TRAIN_B // 2, TRAIN_L, TRAIN_L, TRAIN_L, True, True)
+TP_BLOCK = (TRAIN_B // 2, TRAIN_B, HEADS // 2, HEADS)
 DROPOUT = 0.1
 # The backward kernels against their plain versions, as the largest error
 # over the largest |value| of the plain result. f32: both sum the same f32
@@ -1948,20 +1990,23 @@ def compare_rel(label, got, want, rel) -> float:
     return err
 
 
-def attention_train_check(torch, kernels, gen, case, dtype, p):
+def attention_train_check(torch, kernels, gen, case, dtype, p, heads=HEADS,
+                          block=None):
     """The training forward and the backward of one case against their
     plain versions (and, in f32, the backward against torch.autograd
     through the plain forward). Returns the errors of the output and of
-    dQ."""
+    dQ. ``heads`` and ``block``: a tp rank's heads and its dropout block
+    (row_offset, total_rows, head_offset, total_heads) of the one-device
+    bits, which the plain versions take as dropout_keep_plain's block."""
     dname = str(dtype).split(".")[-1]
-    q, k, v, mask, tab = attention_inputs(torch, gen, case, dtype)
-    kw = dict(num_heads=HEADS, max_pos=case.max_pos)
+    q, k, v, mask, tab = attention_inputs(torch, gen, case, dtype, heads)
+    kw = dict(num_heads=heads, max_pos=case.max_pos)
     seed = draw_seed(torch, gen) if p > 0 else None
     keep = None if seed is None else kernels.dropout_keep_plain(
-        seed, (case.b, HEADS, case.lq, case.lk), p)
+        seed, (case.b, heads, case.lq, case.lk), p, block)
     tag = f"{case.label} {dname} p={p}"
     out, lse = kernels.fused_attention_train(q, k, v, mask, tab, seed, p,
-                                             **kw)
+                                             dropout_block=block, **kw)
     want_out, want_lse = kernels.attention_train_plain(q, k, v, mask, tab,
                                                        keep, p, **kw)
     torch.cuda.synchronize()
@@ -1971,9 +2016,9 @@ def attention_train_check(torch, kernels, gen, case, dtype, p):
     compare(f"attention train lse {tag}", lse, want_lse, *LSE_TOL)
     dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     got = kernels.attention_backward(dout, q, k, v, lse, mask, tab,
-                                     seed, p, **kw)
+                                     seed, p, dropout_block=block, **kw)
     again = kernels.attention_backward(dout, q, k, v, lse, mask, tab,
-                                       seed, p, **kw)
+                                       seed, p, dropout_block=block, **kw)
     want = kernels.attention_backward_plain(dout, q, k, v, lse, mask,
                                             tab, keep, p, **kw)
     torch.cuda.synchronize()
@@ -2081,7 +2126,7 @@ def dropout_keep_check(torch, kernels, gen, p=DROPOUT):
         seed = draw_seed(torch, gen)
         got = torch.empty(shape, dtype=torch.uint8, device="cuda")
         code = lib.e3d_dropout_keep(
-            ctypes.c_void_p(seed.data_ptr()), *shape,
+            ctypes.c_void_p(seed.data_ptr()), *shape, 0, 0, shape[1],
             kernels.dropout_threshold(p), ctypes.c_void_p(got.data_ptr()),
             kernels._stream())
         check(code == 0, f"e3d_dropout_keep failed with cudaError {code}")
@@ -2145,6 +2190,8 @@ def training_kernel_checks(torch, kernels, gen) -> dict:
                 if dtype == torch.bfloat16 and p == DROPOUT:
                     errs["fused_attention_train", case.label] = out_err
                     errs["attention_backward", case.label] = dq_err
+        attention_train_check(torch, kernels, gen, TP_ATTN_CASE, dtype,
+                              DROPOUT, HEADS // 2, TP_BLOCK)
         for rows in TRAIN_LN_ROWS:
             for residual in (False, True):
                 for affine in (False, True):
@@ -3488,6 +3535,787 @@ def files_to_designs_phase(torch, kernels, model, run_root: Path,
         check(same, "convert_data: the converted corpus differs")
     print(f"  {card}")
     return secs
+
+
+# ---------------------------------------------------------------------------
+# phase 13: multi-device on one card
+# ---------------------------------------------------------------------------
+
+# Several ranks share cuda:0 over gloo (NCCL refuses two ranks on one GPU),
+# spawned with torch.multiprocessing; each joins through a file in a
+# temporary directory and writes what it measured there.
+PAR_STEPS = 3
+PAR_SEED = 21                # the tp samplers' weights
+PAR_TIMEOUT = 420            # seconds a world may take before it is killed
+# A mesh step against the one-process step, both bf16 compute, dropout 0.1
+# and every draw from one seed: the two differ only in the order of their
+# sums (a GEMM over 32 rows or a partial product of half the heads, then an
+# all-reduce, against one over 64 rows), so the bf16 rounding flips land
+# elsewhere, as in phase 9.3. Neither bf16 run is the reference: each
+# parameter's first moment (0.1 of its clipped gradient, and after 3 steps
+# their running mean) is held to the f32 one-process run's, the mesh
+# run's error at most BF16_GRAD_FACTOR times the one-process bf16 run's
+# plus BF16_GRAD_SLACK (phase 9.3's rule); the losses to TRAIN_LOSS_TOL's
+# bf16 1e-2 of the one-process bf16 run's; the first step's grad norm (the
+# same weights in every run) by phase 9.3's rule, |mesh - f32| at most
+# BF16_GRAD_FACTOR |one process - f32| + BF16_GRAD_SLACK |f32| (later
+# steps' norms are printed, not held: from the first update on, the runs'
+# weights differ, so their gradients are other models'); each weight's
+# change over the steps by the moments' rule, held to the f32 run's change
+# (all three runs start from the same weights): Adam divides each
+# gradient by its own size, so an update follows the signs of the
+# gradient's elements, and a wrong gradient moves many weights the other
+# way, where the bf16 roundings move only those whose gradient is all but
+# zero; a tensor whose whole gradient is rounding noise, as the key
+# biases' is, takes random signs in every run, and its errors are alike.
+# tp=2 sampling in f32 against one process on the same noise: the f32
+# sums in another order (~1e-6 per op). A whole DDIM-25 run at T=1000 is
+# not held element by element: its first step divides the network's
+# rounding by sqrt(alpha_bar_999) and wraps the x0 prediction, so a few
+# angles land across the +-pi seam and their rows part (the final
+# difference is printed; so is a one-process step's from the tp run's
+# state, which multiplies a 1e-6 noise prediction difference the same way).
+# Held instead, step by step along the tp run's own trajectory: the
+# network, the one-process model's noise prediction at each step's input
+# against the tp model's to PAR_EPS_REL in relative L2; and the sampler,
+# each recorded step against the DDIM update of the tp model's prediction
+# to PAR_STEP_ANGLE_TOL wrapped (the same arithmetic on the same inputs);
+# the D3PM's final classes on at least 99% of the valid tokens (a near tie
+# in one token's logits flips its class, and the later steps of its row
+# follow it).
+PAR_EPS_REL = 1e-4
+PAR_STEP_ANGLE_TOL = 1e-6
+PAR_SEQ_AGREE = 0.99
+
+
+def _par_rank(rank, world, dp, tp, backend, workdir, task, spawned):
+    """One rank of a phase-13 world (a spawned process at wall time
+    ``spawned``): joins the job, builds the mesh on cuda:0, runs ``task``,
+    writes its results; ``setup_s`` counts from the spawn."""
+    global _CYCLES_PER_MS
+    t_start = time.perf_counter() - (time.time() - spawned)
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _CYCLES_PER_MS = _cycles_per_ms(torch)
+    dist.init_process_group(backend, init_method=f"file://{workdir}/rdv_"
+                            f"{task}", rank=rank, world_size=world)
+    from e3diff_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(dp, tp, backend=backend, device="cuda:0")
+    out = PAR_TASKS[task](torch, mesh, Path(workdir), t_start)
+    with open(Path(workdir) / f"{task}_rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _par_world(torch, task, dp, tp, backend, workdir) -> list[dict]:
+    """Spawn the dp x tp ranks of ``task`` on cuda:0; wait (killing them
+    past PAR_TIMEOUT); return each rank's results."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    world = dp * tp
+    spawned = time.time()
+    procs = [ctx.Process(target=_par_rank, args=(r, world, dp, tp, backend,
+                                                 str(workdir), task, spawned))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    check(all(c == 0 for c in codes), f"phase 13 {task}: ranks exited "
+          f"with {codes}")
+    outs = []
+    for r in range(world):
+        with open(Path(workdir) / f"{task}_rank{r}.json") as f:
+            outs.append(json.load(f))
+    print(f"  {task}: {world} ranks ({dp} x {tp}, {backend}) done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return outs
+
+
+class AllReduceClock:
+    """Times every torch.distributed.all_reduce (synchronised around the
+    call, which gloo's staging through the host does anyway)."""
+
+    def __init__(self, torch):
+        import torch.distributed as dist
+
+        self.torch, self.dist, self.secs = torch, dist, 0.0
+        self.calls = 0
+        self._orig = dist.all_reduce
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = self._orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.secs += time.perf_counter() - t0
+            self.calls += 1
+            return res
+
+        dist.all_reduce = timed
+
+    def close(self):
+        self.dist.all_reduce = self._orig
+
+
+def _par_steps(torch, kernels, trainer, batch, n):
+    """``n`` eager train steps; the losses, grad norms, step seconds and
+    the kernels' launches over them."""
+    kernels.reset_launch_counts()
+    losses, norms, secs = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(m["train_loss"].item())
+        norms.append(m["grad_norm"].item())
+    return losses, norms, secs, launch_counts(kernels)
+
+
+def _same_across(torch, mesh, tensors, src: int) -> bool:
+    """Whether rank 0's tensors equal rank ``src``'s bit for bit: ``src``
+    broadcasts their concatenation, every rank takes part."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+    theirs = flat.clone()
+    dist.broadcast(theirs, src=src)
+    return bool(torch.equal(flat, theirs))
+
+
+def _par_references(torch, kernels, batch, mesh_res):
+    """Rank 0: the one-process f32 and bf16 runs of the same steps, and
+    the mesh run held to them (the tolerances above PAR_STEPS)."""
+    import dataclasses
+
+    from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils.presets import structure_train_config
+
+    cfg = structure_train_config(max_epochs=1)
+    ref = {}
+    for dname, bf16 in (("float32", False), ("bfloat16", True)):
+        t = build_trainer("structure", dataclasses.replace(cfg, bf16=bf16),
+                          "cuda", 10_000)
+        w0 = [p.detach().clone() for p in t.optimizer.params]
+        losses, norms, _, _ = _par_steps(torch, kernels, t, batch, PAR_STEPS)
+        ref[dname] = dict(losses=losses, norms=norms,
+                          mu=[m.detach().clone() for m in t.optimizer.mu],
+                          w=[p.detach().clone() for p in t.optimizer.params],
+                          w0=w0, names=t.optimizer.names)
+        del t
+        torch.cuda.empty_cache()
+    f32, b16 = ref["float32"], ref["bfloat16"]
+    names = f32["names"]
+    mu = [mesh_res["mu"][n] for n in names]
+    err_m = grad_errors(torch, mu, f32["mu"])
+    err_o = grad_errors(torch, b16["mu"], f32["mu"])
+    excess = err_m - BF16_GRAD_FACTOR * err_o
+    worst = int(excess.argmax())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(mesh_res["losses"], b16["losses"]))
+    a, b, c = mesh_res["norms"][0], b16["norms"][0], f32["norms"][0]
+    norm_excess = (abs(a - c) - BF16_GRAD_FACTOR * abs(b - c)
+                   - BF16_GRAD_SLACK * abs(c))
+    # the weights' changes: every run starts from the f32 run's weights
+    check(all(torch.equal(a, b) for a, b in zip(f32["w0"], b16["w0"])),
+          "phase 13: the one-process runs start from other weights")
+    moved = [w - w0 for w, w0 in zip(f32["w"], f32["w0"])]
+    werr_m = grad_errors(torch, [mesh_res["w"][n] - w0 for n, w0
+                                 in zip(names, f32["w0"])], moved)
+    werr_o = grad_errors(torch, [w - w0 for w, w0 in zip(b16["w"],
+                                                         f32["w0"])], moved)
+    w_excess = werr_m - BF16_GRAD_FACTOR * werr_o
+    w_worst = int(w_excess.argmax())
+    return dict(
+        loss_rel=loss_rel, norm_excess=norm_excess,
+        mu_err_median=err_m.median().item(), mu_err_max=err_m.max().item(),
+        one_err_median=err_o.median().item(), one_err_max=err_o.max().item(),
+        worst=names[worst], worst_mesh=err_m[worst].item(),
+        worst_one=err_o[worst].item(), excess=excess.max().item(),
+        w_err_median=werr_m.median().item(), w_err_max=werr_m.max().item(),
+        w_one_median=werr_o.median().item(), w_one_max=werr_o.max().item(),
+        w_worst=names[w_worst], w_worst_mesh=werr_m[w_worst].item(),
+        w_worst_one=werr_o[w_worst].item(), w_excess=w_excess.max().item(),
+        ref_losses=b16["losses"],
+        ref_norms=b16["norms"], f32_losses=f32["losses"],
+        f32_norms=f32["norms"])
+
+
+def _dropout_draw_cost(torch, trainer, batch, mesh):
+    """The hidden Dropout draws of one step at the global shape (a mesh
+    rank's) against its own shape: device ms per step, the calls counted
+    by hooks in one forward, each shape timed with CUDA events."""
+    from e3diff_tpu_torch.models.blocks import Dropout
+
+    shapes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: shapes.append((tuple(inp[0].shape),
+                                             mod.split_cols)))
+        for m in trainer.model.modules() if isinstance(m, Dropout)]
+    trainer.model.train()
+    with torch.no_grad():   # a dp-only forward: no collective
+        trainer.model(torch.zeros(batch["ligand_angles"].shape[0],
+                                  dtype=torch.int64, device="cuda"),
+                      batch["ligand_angles"], batch["ligand_attn_mask"],
+                      batch["receptor_seq"], batch["receptor_angles"],
+                      batch["receptor_attn_mask"])
+    for h in hooks:
+        h.remove()
+    ms = {"global": 0.0, "local": 0.0}
+    for (shape, split), n in Counter(shapes).items():
+        x = torch.randn(shape, device="cuda").to(trainer.model.encoder_config
+                                                  .dtype)
+        for label, m in (("global", mesh), ("local", None)):
+            d = Dropout(0.1, m, split_cols=split and m is not None).train()
+            d.generator = torch.Generator(device="cuda").manual_seed(0)
+            ms[label] += n * time_call(torch, lambda: d(x), 20)[0]
+    return dict(calls=len(shapes), global_ms=ms["global"],
+                local_ms=ms["local"])
+
+
+def _keep_bits_check(torch, kernels, mesh, gen) -> bool:
+    """A tp rank's attention keep bits: its training forward's and
+    backward's (q = k = 0 and one-hot V and dO, as phase 9.1 reads them)
+    and e3d_dropout_keep's, at the rank's block (rows 32..63 of 64, its 6
+    of 12 heads), against the matching block of dropout_keep_plain's
+    one-device draw, exactly; bf16 and f32, 128 x 128 with the table."""
+    b, lq, lk, h = TRAIN_B // 2, TRAIN_L, TRAIN_L, HEADS // mesh.tp
+    block = (b, TRAIN_B, mesh.tp_rank * h, HEADS)
+    seed = draw_seed(torch, gen)
+    want = kernels.dropout_keep_plain(seed, (TRAIN_B, HEADS, lq, lk),
+                                      DROPOUT)[b:, block[2]:block[2] + h]
+    ok = True
+    got = torch.empty((b, h, lq, lk), dtype=torch.uint8, device="cuda")
+    code = kernels._build.load_library().e3d_dropout_keep(
+        ctypes.c_void_p(seed.data_ptr()), b, h, lq, lk, block[0], block[2],
+        block[3], kernels.dropout_threshold(DROPOUT),
+        ctypes.c_void_p(got.data_ptr()), kernels._stream())
+    ok &= code == 0 and torch.equal(got.bool(), want)
+    width = h * HEAD_DIM
+
+    def onehot(n, dtype):
+        r = torch.arange(n, device="cuda")[:, None]
+        x = ((r % HEAD_DIM) == torch.arange(HEAD_DIM, device="cuda")[None])
+        x = x.float() * (1.0 + (r >= HEAD_DIM).float())
+        return x.repeat(1, h)[None].expand(b, n, width).contiguous().to(dtype)
+
+    def code_of(keep, n):
+        c = keep[..., :min(n, HEAD_DIM)].long()
+        c = torch.nn.functional.pad(c, (0, HEAD_DIM - c.shape[-1]))
+        if n > HEAD_DIM:
+            c[..., :n - HEAD_DIM] += 2 * keep[..., HEAD_DIM:].long()
+        return c
+
+    kw = dict(num_heads=h, max_pos=TRAIN_L, dropout_block=block)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(b, lq, width, device="cuda", dtype=dtype)
+        mask = torch.zeros(b, lk, device="cuda")
+        tab = torch.randn(2 * TRAIN_L - 1, HEAD_DIM, generator=gen,
+                          device="cuda").to(dtype)
+        pf = torch.tensor(kernels.drop_scale(DROPOUT) / lk).to(dtype).float()
+        out, lse = kernels.fused_attention_train(q, q, onehot(lk, dtype),
+                                                 mask, tab, seed, DROPOUT,
+                                                 **kw)
+        bits = torch.round(out.float().view(b, lq, h, HEAD_DIM) / pf).long()
+        ok &= torch.equal(bits.transpose(1, 2), code_of(want, lk))
+        _, _, dv, _ = kernels.attention_backward(onehot(lq, dtype), q, q, q,
+                                                 lse, mask, tab, seed,
+                                                 DROPOUT, **kw)
+        bits = torch.round(dv.float().view(b, lk, h, HEAD_DIM) / pf).long()
+        ok &= torch.equal(bits.transpose(1, 2),
+                          code_of(want.transpose(2, 3), lq))
+    return bool(ok)
+
+
+def _par_train(torch, mesh, workdir: Path, t_start):
+    """Worlds (a) dp=2 and (b) tp=2: PAR_STEPS eager structure train steps
+    at the preset (B=64 over the mesh, length 128, bf16, dropout 0.1), the
+    replicas compared bit for bit, rank 0 against the one-process runs;
+    then (b) the keep bits and the tp samplers, (a) the engine."""
+    import torch.distributed as dist
+
+    from e3diff_tpu_torch.ops import kernels
+    from e3diff_tpu_torch.parallel import shard_batch
+    from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils.presets import structure_train_config
+
+    cfg = structure_train_config(max_epochs=1)
+    batch = {k: v.to("cuda") for k, v in
+             torch.load(workdir / "batch.pt").items()}
+    trainer = build_trainer("structure", cfg, mesh.device, 10_000, mesh)
+    local = shard_batch(batch, mesh)
+    torch.cuda.synchronize()
+    res = {"setup_s": time.perf_counter() - t_start}
+    torch.cuda.reset_peak_memory_stats()
+    clock = AllReduceClock(torch)
+    losses, norms, secs, counts = _par_steps(torch, kernels, trainer, local,
+                                             PAR_STEPS)
+    clock.close()
+    res.update(losses=losses, norms=norms, step_ms=[1e3 * s for s in secs],
+               allreduce_ms_per_step=1e3 * clock.secs / PAR_STEPS,
+               allreduce_calls_per_step=clock.calls / PAR_STEPS,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               train_launches=counts,
+               launches_ok=counts == {k: PAR_STEPS * n for k, n in
+                                      with_zeros(kernels, PER_TRAIN_STEP[
+                                          "structure"]).items()})
+    # replicas: the dp ranks hold everything alike, the tp ranks the
+    # replicated tensors (the distance tables among them)
+    sd = trainer.model.state_dict()
+    rules = trainer.model.sharding_rules
+    keys = (list(sd) if mesh.tp == 1 else
+            [k for k in sd if rules[k] == "replicated"])
+    res["replicas_equal"] = _same_across(torch, mesh, [sd[k] for k in keys],
+                                         src=1)
+    res["replicated_tables"] = sum("distance_embedding" in k for k in keys)
+    state = trainer.full_state_dict()
+    if mesh.rank == 0:
+        full = {"w": {k: v for k, v in state["model"].items()},
+                "mu": state["optimizer"]["mu"], "losses": losses,
+                "norms": norms}
+        res["dropout_draws"] = (_dropout_draw_cost(torch, trainer, local,
+                                                   mesh)
+                                if mesh.dp > 1 else None)
+        del trainer, state
+        torch.cuda.empty_cache()
+        res["vs_one_process"] = _par_references(torch, kernels, batch, full)
+        del full
+        torch.cuda.empty_cache()
+    else:
+        del trainer, state
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if mesh.tp > 1:
+        res["keep_bits_exact"] = _keep_bits_check(
+            torch, kernels, mesh,
+            torch.Generator(device="cuda").manual_seed(31))
+        res.update(_par_sample(torch, kernels, mesh, workdir))
+    else:
+        res.update(_par_engine(torch, kernels, mesh, workdir))
+    return res
+
+
+def _par_sample(torch, kernels, mesh, workdir: Path) -> dict:
+    """World (b), tp=2: a DDIM-25 structure batch of 32 and a D3PM-50
+    batch, f32, eager on the mesh, against the one-process samples on the
+    same noise (rank 0)."""
+    import torch.distributed as dist
+
+    from e3diff_tpu_torch.diffusion import D3PMDiffusion
+    from e3diff_tpu_torch.diffusion import GaussianAngleDiffusion
+    from e3diff_tpu_torch.models import (
+        SequenceDenoiser,
+        StructureDenoiser,
+        sequence_model_configs,
+        structure_model_configs,
+    )
+    from e3diff_tpu_torch.ops.transitions import UniformTransition
+    from e3diff_tpu_torch.sampling import (
+        make_sequence_sampler,
+        make_structure_sampler,
+    )
+    from e3diff_tpu_torch.sampling.structure import make_denoise_fn
+
+    data = torch.load(workdir / "sample.pt")
+    batch = {k: v.to("cuda") for k, v in data["batch"].items()}
+    diffusion = GaussianAngleDiffusion.cosine(T, device="cuda")
+    d3pm = D3PMDiffusion.create(UniformTransition(20), SEQ_T, device="cuda")
+    models = {"structure": (StructureDenoiser, structure_model_configs),
+              "sequence": (SequenceDenoiser, sequence_model_configs)}
+    res, outs = {}, {}
+    for name, (cls, configs) in models.items():
+        enc, dec = configs(max_seq_len=MAX_POS)
+        shard = cls(enc, dec, device="cuda", seed=PAR_SEED, mesh=mesh)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "structure":
+            run = make_structure_sampler(shard, diffusion, sampler="ddim",
+                                         ddim_steps=DDIM_STEPS,
+                                         return_trajectory=True, eager=True)
+            got, traj = run(batch, noise=data["structure_noise"])
+        else:
+            run = make_sequence_sampler(shard, d3pm, eager=True)
+            got = run(batch, noise=data["sequence_noise"])
+        torch.cuda.synchronize()
+        res[f"{name}_sample_s"] = time.perf_counter() - t0
+        res[f"{name}_launches"] = launch_counts(kernels)
+        res[f"{name}_tp_equal"] = _same_across(torch, mesh, [got], src=1)
+        outs[name] = got
+        if name == "structure":
+            # the tp model's noise prediction at each step's input
+            ts, t_prev = diffusion.ladder("ddim", n_steps=DDIM_STEPS)
+            inputs = [data["structure_noise"]["x_init"].cuda(),
+                      *traj[:-1]]
+            denoise = make_denoise_fn(shard, batch, guided=False)
+            eps_tp = [denoise(torch.full((B,), int(t), device="cuda"), x)
+                      for t, x in zip(ts, inputs)]
+            z = data["structure_noise"]["z"].cuda()
+            step_err = []
+            for i, (t, tp_, x) in enumerate(zip(ts, t_prev, inputs)):
+                x_out = diffusion.ddim_step(
+                    x, eps_tp[i], torch.full((B,), int(t), device="cuda"),
+                    torch.full((B,), int(tp_), device="cuda"), 1.0, z[i])
+                d = (traj[i] - x_out + math.pi) % (2 * math.pi) - math.pi
+                step_err.append(d.abs().max().item())
+            res["structure_step_err"] = max(step_err)
+        del shard, run
+        torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        for name, (cls, configs) in models.items():
+            enc, dec = configs(max_seq_len=MAX_POS)
+            whole = cls(enc, dec, device="cuda", seed=PAR_SEED)
+            if name == "structure":
+                denoise = make_denoise_fn(whole, batch, guided=False)
+                eps_rel, one_err = [], []
+                for i, (t, tp_, x) in enumerate(zip(ts, t_prev, inputs)):
+                    tv = torch.full((B,), int(t), device="cuda")
+                    eps = denoise(tv, x)
+                    eps_rel.append(((eps_tp[i] - eps).norm()
+                                    / eps.norm()).item())
+                    x_out = diffusion.ddim_step(
+                        x, eps, tv, torch.full((B,), int(tp_), device="cuda"),
+                        1.0, z[i])
+                    d = (traj[i] - x_out + math.pi) % (2 * math.pi) - math.pi
+                    one_err.append(d.abs().max().item())
+                want = make_structure_sampler(
+                    whole, diffusion, sampler="ddim", ddim_steps=DDIM_STEPS,
+                    return_trajectory=False, eager=True)(
+                    batch, noise=data["structure_noise"])[0]
+                d = (outs[name] - want + math.pi) % (2 * math.pi) - math.pi
+                res["structure_final_max_diff"] = d.abs().max().item()
+                res["structure_final_median_diff"] = d.abs().median().item()
+                res["structure_eps_rel"] = max(eps_rel)
+                res["structure_one_step_err"] = max(one_err)
+                res["structure_in_range"] = in_angle_range(torch,
+                                                           outs[name])
+            else:
+                want = make_sequence_sampler(whole, d3pm, eager=True)(
+                    batch, noise=data["sequence_noise"])
+                valid = batch["ligand_attn_mask"].bool()
+                same = outs[name].argmax(-1) == want.argmax(-1)
+                res["sequence_agree"] = same[valid].float().mean().item()
+            del whole
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def _par_engine(torch, kernels, mesh, workdir: Path) -> dict:
+    """World (a), dp=2: DesignEngine(mesh=) from phase 9's final.pt files,
+    eager (gloo); rank 0 leads one design batch of 32, rank 1 follows; the
+    designs held to phase 8's checks, beside a one-process engine's from
+    the same seed."""
+    from e3diff_tpu_torch.serving import DesignEngine, pocket_record
+
+    paths = json.loads((workdir / "ckpts.json").read_text())
+    kw = dict(transition="blosum", batch_size=DESIGN_BATCH, sampler="ddim",
+              ddim_steps=DDIM_STEPS)
+    eng = DesignEngine.from_checkpoints(paths["structure"],
+                                        paths["sequence"], mesh=mesh,
+                                        **kw)
+    kernels.reset_launch_counts()
+    if mesh.rank != 0:
+        eng.follow()
+        return {"engine_launches": launch_counts(kernels)}
+    requests = pocket_requests(DESIGN_BATCH, seed=9)
+    t0 = time.perf_counter()
+    results = eng.design_records([pocket_record(*r) for r in requests],
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(10))
+    secs = time.perf_counter() - t0
+    eng.stop_followers()
+    counts = launch_counts(kernels)
+    check_designs(results, requests, "DesignEngine(mesh=) dp=2")
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=torch.Generator(
+        device="cuda").manual_seed(10), device="cuda").item())
+    one = DesignEngine.from_checkpoints(paths["structure"],
+                                        paths["sequence"], **kw)
+    want = one.design_records([pocket_record(*r) for r in requests],
+                              generator=torch.Generator(
+                                  device="cuda").manual_seed(seed))
+    same = sum(a.sequence == b.sequence for a, b in zip(results, want))
+    diff = max(float(np.abs((a.angles - b.angles + np.pi) % (2 * np.pi)
+                            - np.pi).max()) for a, b in zip(results, want))
+    return {"engine_s": secs, "engine_launches": counts,
+            "engine_same_sequences": same, "engine_angle_max_diff": diff}
+
+
+def _par_capture(torch, mesh, workdir: Path, t_start):
+    """World (d): an NCCL world of one. The captured structure train step
+    (its gradient and metric all-reduces inside the graph) against the
+    mesh-free captured step from the same seed, over PAR_STEPS replays:
+    losses, grad norms and every weight and moment bit for bit."""
+    from e3diff_tpu_torch.ops import kernels
+    from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils.presets import structure_train_config
+
+    cfg = structure_train_config(max_epochs=1)
+    batch = {k: v.to("cuda") for k, v in
+             torch.load(workdir / "batch.pt").items()}
+    res = {}
+    runs = {}
+    for label, m in (("plain", None), ("mesh", mesh)):
+        trainer = build_trainer("structure", cfg, "cuda", 10_000, m)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        step = trainer.capture(batch, pool=torch.cuda.graph_pool_handle())
+        torch.cuda.synchronize()
+        res[f"{label}_capture_s"] = time.perf_counter() - t0
+        res[f"{label}_capture_launches"] = launch_counts(kernels)
+        losses, norms = [], []
+        secs = []
+        for _ in range(PAR_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = step(batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(met["train_loss"].item())
+            norms.append(met["grad_norm"].item())
+        res[f"{label}_replay_ms"] = [1e3 * s for s in secs]
+        runs[label] = (losses, norms, [t.detach().clone() for t in
+                                       trainer_state(trainer)])
+        step.close()
+        del trainer, step
+        torch.cuda.empty_cache()
+    a, b = runs["mesh"], runs["plain"]
+    res["losses"] = a[0]
+    res["equal"] = (a[0] == b[0] and a[1] == b[1] and len(a[2]) == len(b[2])
+                    and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+    return res
+
+
+PAR_TASKS = {"train_dp": _par_train, "train_tp": _par_train,
+             "capture_nccl": _par_capture}
+
+
+def multidevice_phase(torch, kernels, card, run_root: Path) -> dict:
+    """Phase 13. Returns the ranks' launches on the main paths (train
+    steps, tp samplers, the engine) and the phase's numbers."""
+    from e3diff_tpu_torch.diffusion import D3PMDiffusion
+    from e3diff_tpu_torch.ops.transitions import UniformTransition
+    from e3diff_tpu_torch.utils.presets import structure_train_config
+
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    numbers = {}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cfg = structure_train_config(max_epochs=1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        work = Path(tmp)
+        batch, _ = train_batch(torch, cfg, gen, "structure")
+        torch.save({k: v.cpu() for k, v in batch.items()}, work / "batch.pt")
+        sbatch = make_batch(torch, gen)
+        sbatch["ligand_seq"] = torch.nn.functional.one_hot(
+            torch.randint(0, 20, (B, L_LIG), generator=gen, device="cuda"),
+            20).float()
+        d3pm = D3PMDiffusion.create(UniformTransition(20), SEQ_T,
+                                    device="cuda")
+        x_init = torch.rand(B, L_LIG, 8, generator=gen, device="cuda")
+        torch.save({
+            "batch": {k: v.cpu() for k, v in sbatch.items()},
+            "structure_noise": {
+                "x_init": ((x_init * 2 - 1) * math.pi).cpu(),
+                "z": torch.randn(DDIM_STEPS, B, L_LIG, 8, generator=gen,
+                                 device="cuda").cpu()},
+            "sequence_noise": {
+                k: v.cpu() for k, v in zip(("x_init", "gumbel"),
+                                           d3pm.draw_noise(
+                    (B, L_LIG, 20), None, generator=gen, device="cuda"))}},
+            work / "sample.pt")
+        (work / "ckpts.json").write_text(json.dumps({
+            "structure": str(run_root / "structure" / "final.pt"),
+            "sequence": str(run_root / "sequence" / "final.pt")}))
+        del batch, sbatch
+        torch.cuda.empty_cache()
+
+        for task, dp, tp in (("train_dp", 2, 1), ("train_tp", 1, 2)):
+            outs = _par_world(torch, task, dp, tp, "gloo", work)
+            numbers[task] = _report_train_world(torch, task, outs)
+            for o in outs:
+                for key in ("train_launches", "structure_launches",
+                            "sequence_launches", "engine_launches"):
+                    for k, n in o.get(key, {}).items():
+                        totals[k] += n
+        outs = _par_world(torch, "capture_nccl", 1, 1, "nccl", work)
+        r = outs[0]
+        print(f"  (d) NCCL world of one, the captured step with its "
+              f"all-reduces in the graph against the mesh-free captured "
+              f"step, {PAR_STEPS} replays: "
+              f"{'bit for bit' if r['equal'] else 'DIFFER'}; losses "
+              f"{r['losses']}; capture {r['mesh_capture_s']:.2f} s against "
+              f"{r['plain_capture_s']:.2f} s; replays ms "
+              f"{[round(x, 2) for x in r['mesh_replay_ms']]} against "
+              f"{[round(x, 2) for x in r['plain_replay_ms']]}", flush=True)
+        check(r["equal"], "phase 13 (d): the NCCL mesh's captured step "
+              "differs from the mesh-free one")
+        check(r["mesh_capture_launches"] == r["plain_capture_launches"],
+              "phase 13 (d): the captures launched differently")
+        numbers["capture_nccl"] = r
+        numbers["torchrun_cli"] = _torchrun_cli(torch, kernels, work,
+                                                run_root)
+    print(f"  {card}")
+    return totals, numbers
+
+
+def _report_train_world(torch, task, outs) -> dict:
+    """Print and check one training world's results (rank 0's
+    comparisons, every rank's launches, replicas, memory, times)."""
+    r0 = outs[0]
+    label = "(a) dp=2" if task == "train_dp" else "(b) tp=2"
+    over = ("every tensor" if task == "train_dp"
+            else "the replicated tensors")
+    v = r0["vs_one_process"]
+    for i, o in enumerate(outs):
+        print(f"  {label} rank {i}: setup {o['setup_s']:.1f} s, step ms "
+              f"{[round(x, 1) for x in o['step_ms']]}, gloo all-reduce "
+              f"{o['allreduce_ms_per_step']:.1f} ms a step in "
+              f"{o['allreduce_calls_per_step']:.0f} calls, peak "
+              f"{o['peak_gib']:.2f} GiB, launches {o['train_launches']}",
+              flush=True)
+        check(o["launches_ok"], f"phase 13 {label} rank {i}: launches "
+              f"{o['train_launches']}")
+    print(f"  {label}: losses {r0['losses']} against one process "
+          f"{v['ref_losses']} (rel {v['loss_rel']:.2e}, tol "
+          f"{TRAIN_LOSS_TOL['bfloat16']:g}); grad norms {r0['norms']} "
+          f"against {v['ref_norms']} (f32 {v['f32_norms']}); first moments "
+          f"against the f32 run: "
+          f"mesh median {v['mu_err_median']:.2e} worst {v['mu_err_max']:.2e},"
+          f" one process median {v['one_err_median']:.2e} worst "
+          f"{v['one_err_max']:.2e}; closest to the bound {v['worst']} "
+          f"({v['worst_mesh']:.2e} against {v['worst_one']:.2e}); weight "
+          f"changes against the f32 run's: mesh median "
+          f"{v['w_err_median']:.2e} worst {v['w_err_max']:.2e}, one process "
+          f"median {v['w_one_median']:.2e} worst {v['w_one_max']:.2e}; "
+          f"closest to the bound {v['w_worst']} ({v['w_worst_mesh']:.2e} "
+          f"against {v['w_worst_one']:.2e}); replicas "
+          f"{'bit for bit' if r0['replicas_equal'] else 'DIFFER'} over "
+          f"{over} ({r0['replicated_tables']} distance tables)", flush=True)
+    check(v["loss_rel"] <= TRAIN_LOSS_TOL["bfloat16"],
+          f"phase 13 {label}: losses differ by {v['loss_rel']}")
+    check(v["norm_excess"] <= 0, f"phase 13 {label}: the first step's grad "
+          f"norm {r0['norms'][0]}")
+    check(v["excess"] <= BF16_GRAD_SLACK, f"phase 13 {label}: the first "
+          f"moment of {v['worst']}: {v['worst_mesh']} against the one-"
+          f"process run's {v['worst_one']}")
+    check(v["w_excess"] <= BF16_GRAD_SLACK, f"phase 13 {label}: the weights "
+          f"of {v['w_worst']} moved {v['w_worst_mesh']} from the f32 run's, "
+          f"the one-process run's {v['w_worst_one']}")
+    check(all(o["replicas_equal"] for o in outs),
+          f"phase 13 {label}: replicas differ")
+    check(r0["replicated_tables"] > 0 or task == "train_dp",
+          f"phase 13 {label}: no replicated distance table compared")
+    if task == "train_dp":
+        d = r0["dropout_draws"]
+        print(f"  (a) hidden dropout draws at the global shape: {d['calls']}"
+              f" calls a forward, {d['global_ms']:.3f} ms against "
+              f"{d['local_ms']:.3f} ms at the rank's own shape", flush=True)
+        print(f"  (f) DesignEngine(mesh=) dp=2, eager: {DESIGN_BATCH} designs"
+              f" in {r0['engine_s']:.2f} s; {r0['engine_same_sequences']} of"
+              f" {DESIGN_BATCH} sequences and angles within "
+              f"{r0['engine_angle_max_diff']:.2e} of a one-process engine "
+              f"from the same seed; launches rank 0 "
+              f"{r0['engine_launches']}, rank 1 "
+              f"{outs[1]['engine_launches']}", flush=True)
+        for o in outs:
+            check(o["engine_launches"]["fused_attention"] > 0,
+                  "phase 13 (f): a rank launched no attention kernel")
+    else:
+        print(f"  (b) keep bits at the tp ranks' blocks: "
+              f"{[o['keep_bits_exact'] for o in outs]}", flush=True)
+        check(all(o["keep_bits_exact"] for o in outs),
+              "phase 13 (b): keep bits differ from dropout_keep_plain's")
+        tp_equal = [o["structure_tp_equal"] and o["sequence_tp_equal"]
+                    for o in outs]
+        print(f"  (c) tp=2 f32 eager: DDIM-{DDIM_STEPS} B={B} in "
+              f"{r0['structure_sample_s']:.2f} s; each step against one "
+              f"process from the tp run's state: noise prediction within "
+              f"{r0['structure_eps_rel']:.2e} relative L2 (tol "
+              f"{PAR_EPS_REL:g}); each recorded step within "
+              f"{r0['structure_step_err']:.2e} of the DDIM update of the tp "
+              f"prediction (tol {PAR_STEP_ANGLE_TOL:g}); a one-process step "
+              f"from the same state within "
+              f"{r0['structure_one_step_err']:.2e}; whole runs: final "
+              f"angles apart by {r0['structure_final_median_diff']:.2e} "
+              f"median, {r0['structure_final_max_diff']:.2e} at most; "
+              f"D3PM-{SEQ_T} in "
+              f"{r0['sequence_sample_s']:.2f} s, classes agree on "
+              f"{100 * r0['sequence_agree']:.2f}% of valid tokens (tol "
+              f"{100 * PAR_SEQ_AGREE:g}%); tp ranks bit for bit: "
+              f"{tp_equal}", flush=True)
+        check(r0["structure_in_range"]
+              and r0["structure_eps_rel"] <= PAR_EPS_REL
+              and all(o["structure_step_err"] <= PAR_STEP_ANGLE_TOL
+                      for o in outs), "phase 13 (c): structure steps")
+        check(r0["sequence_agree"] >= PAR_SEQ_AGREE,
+              "phase 13 (c): sequence samples")
+        check(all(tp_equal), "phase 13 (c): tp ranks differ")
+        for o in outs:
+            for name in ("structure", "sequence"):
+                check(o[f"{name}_launches"]["fused_attention"] > 0,
+                      f"phase 13 (c): no {name} attention launch")
+    return {k: v for k, v in r0.items() if not k.endswith("launches")}
+
+
+def _torchrun_cli(torch, kernels, work: Path, run_root: Path) -> dict:
+    """World (e): the structure train CLI under torch.distributed.run, 2
+    ranks on the card over gloo, one epoch; its final.pt has the
+    one-process key set and serves DesignEngine.from_checkpoints."""
+    from e3diff_tpu_torch.serving import DesignEngine, pocket_record
+
+    ckpt = work / "torchrun"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m",
+           "e3diff_tpu_torch.cli.train_structure", "--multihost", "--dp", "2",
+           "--dist_backend", "gloo", "--synthetic", "--synthetic_n",
+           str(TRAIN_B * 5 // 4), "--max_epochs", "1", "--ckpt_dir",
+           str(ckpt)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=PAR_TIMEOUT)
+    secs = time.perf_counter() - t0
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-6:]
+    print(f"  (e) torch.distributed.run --nproc_per_node 2 train_structure "
+          f"--multihost --dp 2 --dist_backend gloo: exit {proc.returncode} "
+          f"in {secs:.1f} s; {tail}", flush=True)
+    check(proc.returncode == 0, "phase 13 (e): the 2-rank train CLI failed")
+    got = torch.load(ckpt / "final.pt", weights_only=True)
+    want = torch.load(run_root / "structure" / "final.pt", weights_only=True)
+    check(set(got) == set(want) and all(
+        got[k].shape == want[k].shape for k in want),
+        "phase 13 (e): final.pt's keys or shapes differ from one process'")
+    for name in ("config.json", "last.pt", "history.json"):
+        check((ckpt / name).is_file(), f"phase 13 (e): no {name}")
+    eng = DesignEngine.from_checkpoints(
+        str(ckpt / "final.pt"), str(run_root / "sequence" / "final.pt"),
+        transition="blosum", device="cuda", batch_size=DESIGN_BATCH,
+        sampler="ddim", ddim_steps=DDIM_STEPS)
+    requests = pocket_requests(DESIGN_BATCH, seed=11)
+    results = eng.design_records([pocket_record(*r) for r in requests],
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(12))
+    check_designs(results, requests, "engine from the 2-rank final.pt")
+    print(f"  (e) final.pt: the one-process key set ({len(got)} tensors); "
+          f"DesignEngine.from_checkpoints served {DESIGN_BATCH} designs",
+          flush=True)
+    return {"seconds": secs}
 
 
 if __name__ == "__main__":

@@ -1,10 +1,18 @@
 """Serve peptide design over HTTP from two trained checkpoints (counterpart
-of scripts/serve.py, on one card).
+of scripts/serve.py).
 
 Loads the structure and sequence checkpoints (architectures from their
 config.json sidecars), captures both samplers' programs for every bucket
 at startup (``DesignEngine.warmup``), and serves micro-batched design
 requests on fixed shapes.
+
+Over several cards, launch one process per card with
+``python -m torch.distributed.run --nproc_per_node N -m
+e3diff_tpu_torch.cli.serve ...``: the ranks form a (--dp, --tp) mesh
+(dp-only when neither is given), rank 0 runs the HTTP server and leads,
+and the other ranks follow its device batches. ``--dist_backend gloo``
+puts several ranks on one card (NCCL refuses two ranks on one GPU); its
+collectives cannot be captured, so the samplers run eagerly there.
 
 Example:
     python -m e3diff_tpu_torch.cli.serve --structure_ckpt runs/s/final.pt \\
@@ -85,17 +93,52 @@ def build_parser() -> argparse.ArgumentParser:
                         "'64:16:8,64:16:64') to capture at startup instead "
                         "of every bucket combination; the others capture "
                         "at their first request")
+    p.add_argument("--dp", type=int, default=None,
+                   help="serve over a mesh of the torch.distributed.run "
+                        "ranks: data-parallel extent (default: the world "
+                        "size over --tp; batch buckets must divide by it)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel extent of the serving mesh")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="the mesh's collectives (default: nccl on the "
+                        "card); gloo puts several ranks on one card and "
+                        "samples eagerly")
     return p
 
 
+def serving_mesh(args, parser):
+    """The (dp, tp) mesh of a torch.distributed.run launch (None for one
+    process): explicit extents, or dp-only over every rank."""
+    import os
+
+    from e3diff_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    multi = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if not multi and (args.dp or 1) * args.tp == 1:
+        return None
+    _, world = initialize_multihost(backend=args.dist_backend)
+    dp = args.dp if args.dp is not None else world // args.tp
+    if dp * args.tp != world:
+        parser.error(f"--dp {dp} x --tp {args.tp} needs {dp * args.tp} "
+                     f"ranks, the launch has {world}")
+    return make_mesh(dp, args.tp, backend=args.dist_backend,
+                     device=None if args.device == "cuda" else args.device)
+
+
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
 
     from e3diff_tpu_torch.serving import DesignEngine, DesignServer
 
+    mesh = serving_mesh(args, parser)
+    if mesh is not None:
+        print(f"serving mesh: {mesh.shape}, rank {mesh.rank} on "
+              f"{mesh.device}, {mesh.backend}", flush=True)
     print("loading checkpoints ...", flush=True)
     engine = DesignEngine.from_checkpoints(
         args.structure_ckpt, args.sequence_ckpt, device=args.device,
+        mesh=mesh,
         batch_size=args.serve_batch_size, sampler=args.sampler,
         ddim_steps=args.ddim_steps, ddim_eta=args.ddim_eta,
         seq_skip_steps=args.seq_skip_steps or None,
@@ -106,6 +149,9 @@ def main(argv=None) -> None:
         ligand_buckets=_ints(args.ligand_buckets),
         receptor_buckets=_ints(args.receptor_buckets),
         batch_buckets=_ints(args.batch_buckets))
+    if mesh is not None and mesh.rank != 0:
+        engine.follow()   # until rank 0 stops
+        return
     print("capturing the samplers (warmup) ...", flush=True)
     shapes = None
     if args.warmup_shapes:
@@ -122,6 +168,8 @@ def main(argv=None) -> None:
         server.serve_forever()
     except KeyboardInterrupt:
         server.shutdown()
+    finally:
+        engine.stop_followers()
 
 
 if __name__ == "__main__":

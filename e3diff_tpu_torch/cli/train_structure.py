@@ -11,6 +11,13 @@ prints its digest.
 Example:
     python -m e3diff_tpu_torch.cli.train_structure --synthetic \\
         --ckpt_dir runs/structure --max_epochs 2
+
+Over several cards, one process per card (rank 0 writes the files; each
+rank trains on its dp rows of every batch of --batch_size):
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m e3diff_tpu_torch.cli.train_structure --multihost --dp 2 --synthetic
+(--dist_backend gloo puts several ranks on one card; their steps then run
+eagerly.)
 """
 
 from __future__ import annotations

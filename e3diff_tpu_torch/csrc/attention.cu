@@ -119,6 +119,9 @@ struct Args {
   float* lse;
   uint32_t threshold;  // keep iff the 16-bit Philox draw >= threshold
   float drop_scale;    // 1 / (1 - p)
+  // this launch's block of a larger dropout draw (philox.cuh, drop_bh):
+  // batch row b draws as row b + drop_b0, head h as drop_h0 + h of drop_H
+  int drop_b0, drop_h0, drop_H;
 };
 
 // query rows a block covers: all of them, or train_rows for training
@@ -230,9 +233,11 @@ attention_mma_kernel(Args a, float scale) {
   // 8-key tile j at bit 4 j), drawn while the copies are in flight
   uint64_t kb = 0;
   if (kTrain && a.seed != nullptr)
-    kb = keep_frags<NK>(a.seed,
-                        (bh * Lq + q0 + l0 + g) * static_cast<uint64_t>(Lk),
-                        Lk, t, a.threshold);
+    kb = keep_frags<NK>(
+        a.seed,
+        (drop_bh(b, h, a.drop_b0, a.drop_h0, a.drop_H) * Lq + q0 + l0 + g) *
+            static_cast<uint64_t>(Lk),
+        Lk, t, a.threshold);
   cp_async_wait_all();
   __syncthreads();
 
@@ -441,7 +446,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int Lq, int Lk, int H, int max_pos, float scale,
                      const int64_t* __restrict__ seed,
                      float* __restrict__ lse, uint32_t threshold,
-                     float drop_scale) {
+                     float drop_scale, int drop_b0, int drop_h0,
+                     int drop_H) {
   extern __shared__ float fsmem[];
   float* Ks = fsmem;
   float* Vs = Ks + Lk * kStride;
@@ -516,6 +522,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     sum = warp_sum(sum);
     const size_t row = (static_cast<size_t>(b) * H + h) * Lq + l;
+    const uint64_t drow = drop_bh(b, h, drop_b0, drop_h0, drop_H) * Lq + l;
     if (kTrain && lane == 0) lse[row] = m + logf(sum);
 #pragma unroll
     for (int j = 0; j < kMaxLen / 32; ++j) {
@@ -523,8 +530,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (r < Lk) {
         float p = s[j] / sum;
         if (kTrain && seed != nullptr)
-          p = dropout_keep(key, row * Lk + r, threshold) ? p * drop_scale
-                                                         : 0.f;
+          p = dropout_keep(key, drow * Lk + r, threshold) ? p * drop_scale
+                                                          : 0.f;
         pw[r] = p;
       }
     }
@@ -546,7 +553,8 @@ template <bool kTrain>
 int launch_f32(const void* q, const void* k, const void* v, const void* mask,
                const void* table, void* out, int B, int Lq, int Lk, int H,
                int max_pos, const int64_t* seed, float* lse,
-               uint32_t threshold, float drop_scale, cudaStream_t stream) {
+               uint32_t threshold, float drop_scale, int drop_b0,
+               int drop_h0, int drop_H, cudaStream_t stream) {
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -563,7 +571,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* mask,
       static_cast<const float*>(v), static_cast<const float*>(mask),
       static_cast<const float*>(table), static_cast<float*>(out), Lq, Lk, H,
       max_pos, 1.0f / sqrtf(static_cast<float>(kD)), seed, lse, threshold,
-      drop_scale);
+      drop_scale, drop_b0, drop_h0, drop_H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -571,20 +579,23 @@ template <bool kTrain>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* table, void* out, int B, int Lq, int Lk, int H,
            int max_pos, const int64_t* seed, float* lse, uint32_t threshold,
-           float drop_scale, int dtype, cudaStream_t s) {
+           float drop_scale, int drop_b0, int drop_h0, int drop_H, int dtype,
+           cudaStream_t s) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lq > kMaxLen || Lk <= 0 || Lk > kMaxLen)
     return static_cast<int>(cudaErrorInvalidValue);
   if (table != nullptr && (Lq > max_pos || Lk > max_pos))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kF32)
     return launch_f32<kTrain>(q, k, v, mask, table, out, B, Lq, Lk, H,
-                              max_pos, seed, lse, threshold, drop_scale, s);
+                              max_pos, seed, lse, threshold, drop_scale,
+                              drop_b0, drop_h0, drop_H, s);
   if (dtype == kBF16)
     return launch_bf16<kTrain>(
         Args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
              static_cast<const bf16*>(v), static_cast<const float*>(mask),
              static_cast<const bf16*>(table), static_cast<bf16*>(out), B, Lq,
-             Lk, H, max_pos, seed, lse, threshold, drop_scale},
+             Lk, H, max_pos, seed, lse, threshold, drop_scale, drop_b0,
+             drop_h0, drop_H},
         s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -593,14 +604,19 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 // rows of one (b, h), each lane writing the bits keep_frag2 gives it for
 // every 16 keys, as the tensor-core kernels draw them.
 __global__ void __launch_bounds__(kMaxWarps * 32)
-dropout_keep_kernel(const int64_t* __restrict__ seed, int Lq, int Lk,
-                    uint32_t threshold, uint8_t* __restrict__ out) {
+dropout_keep_kernel(const int64_t* __restrict__ seed, int H, int Lq, int Lk,
+                    int drop_b0, int drop_h0, int drop_H, uint32_t threshold,
+                    uint8_t* __restrict__ out) {
   const PhiloxKey key = philox_key(seed);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int l0 = (blockIdx.y * kMaxWarps + (threadIdx.x >> 5)) * kTile;
   const size_t bh = blockIdx.x;
   if (l0 >= Lq) return;  // the whole warp: keep_frag shuffles
-  const uint64_t row_g = (bh * Lq + l0 + g) * static_cast<uint64_t>(Lk);
+  const uint64_t row_g =
+      (drop_bh(blockIdx.x / H, blockIdx.x % H, drop_b0, drop_h0, drop_H) *
+           Lq +
+       l0 + g) *
+      static_cast<uint64_t>(Lk);
   for (int m = 0; m < (Lk + 15) / 16; ++m) {
     const uint32_t bits = keep_frag2(key, row_g, Lk, m, t, threshold);
 #pragma unroll
@@ -624,7 +640,7 @@ extern "C" int e3d_attention(const void* q, const void* k, const void* v,
                              int B, int Lq, int Lk, int H, int max_pos,
                              int dtype, void* stream) {
   return launch<false>(q, k, v, mask, table, out, B, Lq, Lk, H, max_pos,
-                       nullptr, nullptr, 0u, 1.f, dtype,
+                       nullptr, nullptr, 0u, 1.f, 0, 0, H, dtype,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -632,18 +648,23 @@ extern "C" int e3d_attention(const void* q, const void* k, const void* v,
 // f32 receives each row's log-sum-exp; seed (2 int64 on the card, or null
 // for no dropout) keys the Philox draws of philox.cuh: P is dropped where
 // the element's word is below threshold and scaled by drop_scale where it
-// is not.
+// is not. (drop_b0, drop_h0, drop_H): the launch draws the bits of rows
+// drop_b0 .. drop_b0 + B - 1 and heads drop_h0 .. drop_h0 + H - 1 of a
+// draw over drop_H heads ((0, 0, H): its own).
 extern "C" int e3d_attention_train(const void* q, const void* k,
                                    const void* v, const void* mask,
                                    const void* table, const void* seed,
                                    void* out, void* lse, int B, int Lq,
-                                   int Lk, int H, int max_pos,
+                                   int Lk, int H, int max_pos, int drop_b0,
+                                   int drop_h0, int drop_H,
                                    uint32_t threshold, float drop_scale,
                                    int dtype, void* stream) {
-  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (lse == nullptr || drop_b0 < 0 || drop_h0 < 0 || drop_h0 + H > drop_H)
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch<true>(q, k, v, mask, table, out, B, Lq, Lk, H, max_pos,
                       static_cast<const int64_t*>(seed),
-                      static_cast<float*>(lse), threshold, drop_scale, dtype,
+                      static_cast<float*>(lse), threshold, drop_scale,
+                      drop_b0, drop_h0, drop_H, dtype,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -659,26 +680,28 @@ extern "C" int e3d_attention_train_occupancy(int Lq, int Lk, int table,
   // only the pointers' presence and alignment matter
   alignas(16) static const bf16 dummy[8] = {};
   Args a{dummy, dummy, dummy, nullptr, table ? dummy : nullptr, nullptr,
-         1, Lq, Lk, 1, kMaxLen, nullptr, nullptr, 0u, 1.f};
+         1, Lq, Lk, 1, kMaxLen, nullptr, nullptr, 0u, 1.f, 0, 0, 1};
   a.out = const_cast<bf16*>(dummy);
   return launch_bf16<true>(a, nullptr, blocks_per_sm);
 }
 
 // out (B, H, Lq, Lk) uint8: the keep bits the training kernels draw for
-// seed and threshold (for tests: the card's bits against the plain
-// version's).
+// seed and threshold, of the block (drop_b0, drop_h0, drop_H) as
+// e3d_attention_train takes it (for tests: the card's bits against the
+// plain version's).
 extern "C" int e3d_dropout_keep(const void* seed, int B, int H, int Lq,
-                                int Lk, uint32_t threshold, void* out,
+                                int Lk, int drop_b0, int drop_h0, int drop_H,
+                                uint32_t threshold, void* out,
                                 void* stream) {
   if (seed == nullptr || out == nullptr || B <= 0 || H <= 0 || Lq <= 0 ||
-      Lk <= 0)
+      Lk <= 0 || drop_b0 < 0 || drop_h0 < 0 || drop_h0 + H > drop_H)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows_per_block = kMaxWarps * kTile;
   dropout_keep_kernel<<<dim3(B * H,
                              (Lq + rows_per_block - 1) / rows_per_block),
                         kMaxWarps * 32, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(seed), Lq, Lk, threshold,
-      static_cast<uint8_t*>(out));
+      static_cast<const int64_t*>(seed), H, Lq, Lk, drop_b0, drop_h0, drop_H,
+      threshold, static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

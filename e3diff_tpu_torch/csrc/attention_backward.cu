@@ -132,6 +132,8 @@ struct BwdArgs {
   float* dtable;
   float* dtable_part;  // (G, H, Lq + Lk - 1, 64) f32: G = ceil(B / group)
   int B, Lq, Lk, H, max_pos, group;
+  // the block of the forward's dropout draw (philox.cuh, drop_bh)
+  int drop_b0, drop_h0, drop_H;
   uint32_t threshold;
   float scale, drop_scale;
 };
@@ -219,6 +221,7 @@ attention_bwd_dq_kernel(BwdArgs a) {
   float* dsw = gw + kD;                        // the row's dS, by key
   const size_t bh = static_cast<size_t>(b) * a.H + h;
   const bool drop = a.seed != nullptr;
+  const uint64_t dbh = drop_bh(b, h, a.drop_b0, a.drop_h0, a.drop_H);
   const PhiloxKey key = drop ? philox_key(a.seed) : PhiloxKey{0u, 0u};
 
   for (int l = warp; l < Lq; l += kWarps) {
@@ -240,7 +243,7 @@ attention_bwd_dq_kernel(BwdArgs a) {
         p[j] = expf(s * a.scale + Ms[r] - lse);
         dp[j] = dot64(gw, Vs + r * kRowF);
         if (drop)
-          dp[j] = dropout_keep(key, (bh * Lq + l) * Lk + r, a.threshold)
+          dp[j] = dropout_keep(key, (dbh * Lq + l) * Lk + r, a.threshold)
                       ? dp[j] * a.drop_scale
                       : 0.f;
         part = fmaf(p[j], dp[j], part);
@@ -304,6 +307,7 @@ attention_bwd_dkv_kernel(BwdArgs a) {
   float* dsc = vw + kD;                            // dS[:, r], by query
   float* pdc = dsc + kMaxLen;                      // (P f)[:, r], by query
   const bool drop = a.seed != nullptr;
+  const uint64_t dbh = drop_bh(b, h, a.drop_b0, a.drop_h0, a.drop_H);
   const PhiloxKey key = drop ? philox_key(a.seed) : PhiloxKey{0u, 0u};
 
   for (int r = warp; r < Lk; r += kWarps) {
@@ -323,7 +327,7 @@ attention_bwd_dkv_kernel(BwdArgs a) {
         const float p = expf(s * a.scale + mr - Ls[l]);
         float f = 1.f;
         if (drop)
-          f = dropout_keep(key, (bh * Lq + l) * Lk + r, a.threshold)
+          f = dropout_keep(key, (dbh * Lq + l) * Lk + r, a.threshold)
                   ? a.drop_scale
                   : 0.f;
         const float dp = dot64(Gs + l * kRowF, vw) * f;
@@ -548,8 +552,11 @@ __device__ __forceinline__ void bwd_mma_row(const BwdArgs& a, int h, int b,
   uint64_t kb = 0;
   if (drop && warp * kTile < Lq)
     kb = keep_frags<NK>(
-        a.seed, (bh * Lq + warp * kTile + g) * static_cast<uint64_t>(Lk), Lk,
-        t, a.threshold);
+        a.seed,
+        (drop_bh(b, h, a.drop_b0, a.drop_h0, a.drop_H) * Lq + warp * kTile +
+         g) *
+            static_cast<uint64_t>(Lk),
+        Lk, t, a.threshold);
   cp_async_wait_all();
   __syncthreads();
 
@@ -882,7 +889,8 @@ int launch_bf16(const BwdArgs& a, cudaStream_t stream,
 // element type (dtype); mask: (B, Lk) f32 additive; table:
 // (2*max_pos-1, 64) in the element type, or null (then dtable and
 // dtable_part are unused); seed: the forward's 2 int64 on the card, or null
-// for no dropout, with its threshold and drop_scale; lse: (B, H, Lq) f32
+// for no dropout, with its block (drop_b0, drop_h0, drop_H, as
+// e3d_attention_train takes it), threshold and drop_scale; lse: (B, H, Lq) f32
 // from the training forward; delta: (B, H, Lq) f32 scratch; dtable:
 // (2*max_pos-1, 64) f32, zeroed by the caller, whose rows max_pos - Lk ..
 // max_pos + Lq - 2 are written; dtable_part: (ceil(B / group), H,
@@ -894,9 +902,11 @@ extern "C" int e3d_attention_backward(
     const void* mask, const void* table, const void* seed,
     const void* lse, void* delta, void* dq, void* dk, void* dv, void* dtable,
     void* dtable_part, int B, int Lq, int Lk, int H, int max_pos, int group,
-    uint32_t threshold, float drop_scale, int dtype, void* stream) {
+    int drop_b0, int drop_h0, int drop_H, uint32_t threshold,
+    float drop_scale, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lq > kMaxLen || Lk <= 0 ||
-      Lk > kMaxLen || group <= 0 || (dtype == kF32 && group != 1))
+      Lk > kMaxLen || group <= 0 || (dtype == kF32 && group != 1) ||
+      drop_b0 < 0 || drop_h0 < 0 || drop_h0 + H > drop_H)
     return static_cast<int>(cudaErrorInvalidValue);
   if (table != nullptr && (Lq > max_pos || Lk > max_pos || dtable == nullptr ||
                            dtable_part == nullptr))
@@ -906,8 +916,8 @@ extern "C" int e3d_attention_backward(
                   static_cast<const float*>(lse), static_cast<float*>(delta),
                   dq, dk, dv, static_cast<float*>(dtable),
                   static_cast<float*>(dtable_part), B, Lq, Lk, H, max_pos,
-                  group, threshold, 1.0f / sqrtf(static_cast<float>(kD)),
-                  drop_scale};
+                  group, drop_b0, drop_h0, drop_H, threshold,
+                  1.0f / sqrtf(static_cast<float>(kD)), drop_scale};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return launch_f32(a, s);
   if (dtype == kBF16) return launch_bf16(a, s);
@@ -927,7 +937,7 @@ extern "C" int e3d_attention_backward_occupancy(int Lq, int Lk, int table,
   BwdArgs a{};
   a.q = a.k = a.v = a.dout = dummy;
   a.table = table ? dummy : nullptr;
-  a.B = a.H = a.group = 1;
+  a.B = a.H = a.group = a.drop_H = 1;
   a.Lq = Lq;
   a.Lk = Lk;
   a.max_pos = kMaxLen;

@@ -13,7 +13,9 @@
 //               device tensor the wrapper draws from the trainer's generator
 //               (read through its pointer: the host never syncs);
 //   n         = ((b H + h) Lq + l) Lk + r, the flat index of element
-//               (b, h, l, r) of the (B, H, Lq, Lk) probabilities;
+//               (b, h, l, r) of the (B, H, Lq, Lk) probabilities; a
+//               launch that draws a rank's block of a (B', H', Lq, Lk)
+//               draw puts b + b0 and h0 + h of H' in their place (drop_bh);
 //   counter   = (floor(n / 8) mod 2^32, floor(n / 2^35), 0, 0);
 //   u         = 16-bit half n mod 2 (0: low) of word (n mod 8) / 2 of
 //               Philox4x32-10(counter, key);
@@ -77,6 +79,16 @@ __device__ __forceinline__ uint32_t keep_byte(PhiloxKey key, uint64_t c,
                                    0xffffu) >= thr)
             << i;
   return bits;
+}
+
+// the (b, h) index of the dropout draw a launch's row b, head h reads: the
+// launch covers rows drop_b0 .. and heads drop_h0 .. of a draw over
+// drop_H heads, so that a rank of a mesh draws exactly its block of the
+// one-device bits ((0, 0, H) for a launch's own draw)
+__device__ __forceinline__ uint64_t drop_bh(int b, int h, int drop_b0,
+                                            int drop_h0, int drop_H) {
+  return static_cast<uint64_t>(b + drop_b0) * static_cast<uint64_t>(drop_H) +
+         static_cast<uint64_t>(drop_h0 + h);
 }
 
 // keep bit of flat element n (one Philox call)

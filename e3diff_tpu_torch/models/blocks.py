@@ -26,6 +26,17 @@ come from the generator ``set_dropout_generator`` hands every dropout
 site. Training keeps f32 master weights and computes in the config's
 dtype, as the JAX ``bf16`` preset does; a Linear stored in bf16 or int8
 refuses to train.
+
+Built with a ``mesh`` (parallel/mesh.py), the blocks are Megatron-style
+tensor parallel over its tp ranks: an attention block whose heads divide
+by tp runs ``num_heads / tp`` heads per rank (column-parallel Q/K/V, a
+row-parallel output dense, the distance table replicated and entered
+through ``copy_to_tp`` so that its gradient is summed over the heads),
+and an MLP whose width divides by tp is column- then row-parallel; a
+block that does not split is replicated. Every dropout site draws the
+mask of the one-device batch (the global rows, the whole width) from the
+generator, which every rank seeds alike, and keeps its own block, so a
+mesh step drops what the one-process step drops.
 """
 
 from __future__ import annotations
@@ -38,6 +49,11 @@ from torch import nn
 
 from e3diff_tpu_torch.models.config import TransformerConfig
 from e3diff_tpu_torch.ops import kernels
+from e3diff_tpu_torch.parallel.mesh import (
+    copy_to_tp,
+    reduce_from_tp,
+    splits,
+)
 from e3diff_tpu_torch.utils.quant import dequantize
 
 
@@ -58,18 +74,34 @@ def kernel_mask(mask: torch.Tensor, cfg: TransformerConfig):
 class Dropout(nn.Module):
     """flax's Dropout: under ``train()``, x / (1 - p) where a uniform draw
     from ``generator`` is >= p, else 0; the identity in eval mode. No
-    parameters, so the state_dict keys around it do not change."""
+    parameters, so the state_dict keys around it do not change.
 
-    def __init__(self, p: float):
+    Under a ``mesh`` the uniforms are drawn at the one-device shape, the
+    rows times dp (and, with ``split_cols``, the last axis times tp: the
+    site sits on a column-parallel activation), and the rank keeps its
+    block: dp (times tp) the draws, for the same bits."""
+
+    def __init__(self, p: float, mesh=None, split_cols: bool = False):
         super().__init__()
         self.p = p
+        self.mesh, self.split_cols = mesh, split_cols
         self.generator: torch.Generator | None = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        if self.mesh is None:
+            u = torch.rand(x.shape, generator=self.generator,
+                           device=x.device)
+        else:
+            n, c = x.shape[0], x.shape[-1]
+            r0, rows = self.mesh.rows(n)
+            c0, cols = ((self.mesh.tp_rank * c, self.mesh.tp * c)
+                        if self.split_cols else (0, c))
+            u = torch.rand((rows,) + tuple(x.shape[1:-1]) + (cols,),
+                           generator=self.generator, device=x.device)
+            u = u[r0:r0 + n, ..., c0:c0 + c]
+        keep = u >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
@@ -111,6 +143,52 @@ class Linear(nn.Module):
         return F.linear(x.to(self.dtype), w, self.bias.to(self.dtype))
 
 
+class ColumnParallelLinear(Linear):
+    """A Linear whose output features are split over the mesh's tp ranks:
+    this rank holds ``out / tp`` rows of the weight and the bias. Its input
+    must already be in the tp region (``copy_to_tp``, once per block)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype, device, mesh):
+        super().__init__(in_features, out_features // mesh.tp, dtype, device)
+
+
+class RowParallelLinear(Linear):
+    """A Linear whose input features are split over the mesh's tp ranks:
+    this rank holds ``in / tp`` columns of the weight and the whole bias;
+    the partial products are summed over ``tp_group`` in f32
+    (``reduce_from_tp``) and the bias is added once, after the sum."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype, device, mesh):
+        super().__init__(in_features // mesh.tp, out_features, dtype, device)
+        self.mesh = mesh
+
+    def forward(self, x):
+        if self.training and (self.weight_scale is not None
+                              or self.weight.dtype != torch.float32):
+            raise RuntimeError(
+                f"RowParallelLinear({self.in_features}, {self.out_features}):"
+                f" weights stored as {self.weight.dtype} for inference do "
+                "not train; train f32 weights")
+        w = dequantize(self.weight, self.weight_scale).to(self.dtype)
+        part = F.linear(x.to(self.dtype), w).float()
+        y = reduce_from_tp(part, self.mesh) + self.bias.float()
+        return y.to(self.dtype)
+
+
+def _linear(in_features, out_features, dtype, device, mesh=None,
+            parallel=None):
+    """A Linear, or its column- / row-parallel form on a mesh."""
+    if parallel == "col":
+        return ColumnParallelLinear(in_features, out_features, dtype, device,
+                                    mesh)
+    if parallel == "row":
+        return RowParallelLinear(in_features, out_features, dtype, device,
+                                 mesh)
+    return Linear(in_features, out_features, dtype, device)
+
+
 class DistanceEmbedding(nn.Module):
     """HF relative_key distance table, (2*max_pos-1, head_dim)."""
 
@@ -122,8 +200,14 @@ class DistanceEmbedding(nn.Module):
             torch.empty(2 * max_pos - 1, head_dim, device=device))
         self.register_buffer("weight_scale", None)
 
-    def table(self, dtype):
-        return dequantize(self.weight, self.weight_scale).to(dtype)
+    def table(self, dtype, mesh=None):
+        """The table in ``dtype``; with a ``mesh``, entered into the tp
+        region before the cast, so that the heads' partial gradients are
+        summed over tp in f32."""
+        w = dequantize(self.weight, self.weight_scale)
+        if mesh is not None:
+            w = copy_to_tp(w, mesh)
+        return w.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -148,15 +232,20 @@ class LayerNorm(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Q/K/V projections and the attention core (HF BertSelfAttention):
-    relative scores are added to the raw logits before the 1/sqrt(D)."""
+    relative scores are added to the raw logits before the 1/sqrt(D).
+    ``split``: the heads are split over the mesh's tp ranks (column-
+    parallel Q/K/V, ``num_heads / tp`` heads here)."""
 
-    def __init__(self, cfg: TransformerConfig, relative: bool, device=None):
+    def __init__(self, cfg: TransformerConfig, relative: bool, device=None,
+                 mesh=None, split: bool = False):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.mesh, self.split = cfg, mesh, split
         h = cfg.hidden_size
-        self.query = Linear(h, h, cfg.dtype, device)
-        self.key = Linear(h, h, cfg.dtype, device)
-        self.value = Linear(h, h, cfg.dtype, device)
+        par = "col" if split else None
+        self.query = _linear(h, h, cfg.dtype, device, mesh, par)
+        self.key = _linear(h, h, cfg.dtype, device, mesh, par)
+        self.value = _linear(h, h, cfg.dtype, device, mesh, par)
+        self.num_heads = cfg.num_heads // mesh.tp if split else cfg.num_heads
         if relative and cfg.position_embedding_type == "relative_key":
             self.distance_embedding = DistanceEmbedding(
                 cfg.max_position_embeddings, cfg.head_dim, device)
@@ -164,35 +253,64 @@ class MultiHeadAttention(nn.Module):
             self.distance_embedding = None
         self.generator: torch.Generator | None = None
 
+    def _in(self, x):
+        return copy_to_tp(x, self.mesh) if self.split else x
+
     def project_kv(self, kv):
-        """K and V of a memory, flat (B, Lk, H*D) each."""
+        """K and V of a memory, flat (B, Lk, H*D) each (this rank's heads
+        under a split)."""
+        kv = self._in(kv)
         return self.key(kv), self.value(kv)
 
+    def _dropout_block(self, b: int):
+        if self.mesh is None:
+            return None
+        r0, rows = self.mesh.rows(b)
+        if self.split:
+            return (r0, rows, self.mesh.tp_rank * self.num_heads,
+                    self.cfg.num_heads)
+        return r0, rows, 0, self.num_heads
+
     def forward(self, x, kv, mask_add, cached_kv=None):
-        k, v = cached_kv if cached_kv is not None else self.project_kv(kv)
-        table = (None if self.distance_embedding is None
-                 else self.distance_embedding.table(self.cfg.dtype))
+        xin = self._in(x)
+        if cached_kv is not None:
+            k, v = cached_kv
+        elif kv is x:
+            k, v = self.key(xin), self.value(xin)
+        else:
+            k, v = self.project_kv(kv)
+        table = None
+        if self.distance_embedding is not None:
+            table = self.distance_embedding.table(
+                self.cfg.dtype, self.mesh if self.split else None)
         return kernels.attention(
-            self.query(x), k, v, mask_add, table,
-            num_heads=self.cfg.num_heads,
+            self.query(xin), k, v, mask_add, table,
+            num_heads=self.num_heads,
             max_pos=self.cfg.max_position_embeddings,
             dropout_p=self.cfg.attention_dropout if self.training else 0.0,
-            generator=self.generator)
+            generator=self.generator,
+            dropout_block=self._dropout_block(x.shape[0]))
 
 
 class AttentionBlock(nn.Module):
     """BertAttention: attention + output dense + residual LayerNorm.
-    Cross-attention never takes relative scores (HF builds it absolute)."""
+    Cross-attention never takes relative scores (HF builds it absolute).
+    On a mesh whose tp divides num_heads the heads are split and the
+    output dense is row-parallel."""
 
-    def __init__(self, cfg: TransformerConfig, cross: bool, device=None):
+    def __init__(self, cfg: TransformerConfig, cross: bool, device=None,
+                 mesh=None):
         super().__init__()
         h = cfg.hidden_size
-        self.self = MultiHeadAttention(cfg, relative=not cross, device=device)
+        split = mesh is not None and splits(cfg.num_heads, mesh.tp)
+        self.self = MultiHeadAttention(cfg, relative=not cross, device=device,
+                                       mesh=mesh, split=split)
         self.output = nn.ModuleDict({
-            "dense": Linear(h, h, cfg.dtype, device),
+            "dense": _linear(h, h, cfg.dtype, device, mesh,
+                             "row" if split else None),
             "LayerNorm": LayerNorm(h, cfg.layer_norm_eps, device=device),
         })
-        self.dropout = Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout, mesh)
 
     def forward(self, x, kv, mask_add, cached_kv=None):
         ctx = self.self(x, x if kv is None and cached_kv is None else kv,
@@ -203,21 +321,29 @@ class AttentionBlock(nn.Module):
 
 class TransformerLayer(nn.Module):
     """BertLayer: self-attention [+ cross-attention] + GELU MLP, each closed
-    by residual + LayerNorm."""
+    by residual + LayerNorm. On a mesh whose tp divides the MLP's width
+    the MLP is column- then row-parallel."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
         h = cfg.hidden_size
-        self.attention = AttentionBlock(cfg, cross=False, device=device)
-        self.crossattention = (AttentionBlock(cfg, cross=True, device=device)
+        self.attention = AttentionBlock(cfg, cross=False, device=device,
+                                        mesh=mesh)
+        self.crossattention = (AttentionBlock(cfg, cross=True, device=device,
+                                              mesh=mesh)
                                if cfg.add_cross_attention else None)
+        self.mesh = mesh
+        self.split = mesh is not None and splits(cfg.intermediate_size,
+                                                 mesh.tp)
         self.intermediate = nn.ModuleDict({
-            "dense": Linear(h, cfg.intermediate_size, cfg.dtype, device)})
+            "dense": _linear(h, cfg.intermediate_size, cfg.dtype, device,
+                             mesh, "col" if self.split else None)})
         self.output = nn.ModuleDict({
-            "dense": Linear(cfg.intermediate_size, h, cfg.dtype, device),
+            "dense": _linear(cfg.intermediate_size, h, cfg.dtype, device,
+                             mesh, "row" if self.split else None),
             "LayerNorm": LayerNorm(h, cfg.layer_norm_eps, device=device),
         })
-        self.dropout = Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout, mesh)
 
     def forward(self, x, mask_add, enc_out=None, enc_mask_add=None,
                 cross_kv=None):
@@ -225,7 +351,8 @@ class TransformerLayer(nn.Module):
         if self.crossattention is not None and (enc_out is not None
                                                 or cross_kv is not None):
             x = self.crossattention(x, enc_out, enc_mask_add, cross_kv)
-        y = F.gelu(self.intermediate["dense"](x))
+        y = F.gelu(self.intermediate["dense"](
+            copy_to_tp(x, self.mesh) if self.split else x))
         return self.output["LayerNorm"](
             self.dropout(self.output["dense"](y)), residual=x)
 
@@ -233,14 +360,15 @@ class TransformerLayer(nn.Module):
 class TransformerStack(nn.Module):
     """BertEncoder: ``layer.{i}``."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
-        self.layer = nn.ModuleList(TransformerLayer(cfg, device)
+        self.layer = nn.ModuleList(TransformerLayer(cfg, device, mesh)
                                    for _ in range(cfg.num_layers))
 
     def precompute_cross_kv(self, enc_out):
         """Each layer's cross-attention (K, V) over a memory, flat
-        (B, Lk, H*D): samplers compute them once per batch."""
+        (B, Lk, H*D) (this rank's heads under a split): samplers compute
+        them once per batch."""
         return [layer.crossattention.self.project_kv(enc_out)
                 for layer in self.layer]
 
@@ -258,21 +386,27 @@ class SELayer(nn.Module):
     affine-free with eps 1e-5; the MLP is mlp_ratio * hidden = 3072 wide,
     not intermediate_size."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
         h = cfg.hidden_size
         mlp_dim = int(h * cfg.mlp_ratio)
         self.adaLN_modulation = nn.Sequential(
             Linear(h, h, cfg.dtype, device), nn.SiLU(),
             Linear(h, 6 * h, cfg.dtype, device))
-        self.attn = AttentionBlock(cfg, cross=False, device=device)
+        self.attn = AttentionBlock(cfg, cross=False, device=device, mesh=mesh)
         self.norm1 = LayerNorm(h, 1e-5, affine=False)
+        self.mesh = mesh
+        self.split = mesh is not None and splits(mlp_dim, mesh.tp)
         # Linears at indices 0 and 3 as in the reference (1: GELU, 2 and
-        # 4: dropout, JAX blocks.py:393, :395)
+        # 4: dropout, JAX blocks.py:393, :395); on a mesh the first
+        # dropout sits on the column-parallel activation
         self.mlp = nn.Sequential(
-            Linear(h, mlp_dim, cfg.dtype, device), nn.GELU(),
-            Dropout(cfg.dropout), Linear(mlp_dim, h, cfg.dtype, device),
-            Dropout(cfg.dropout))
+            _linear(h, mlp_dim, cfg.dtype, device, mesh,
+                    "col" if self.split else None), nn.GELU(),
+            Dropout(cfg.dropout, mesh, split_cols=self.split),
+            _linear(mlp_dim, h, cfg.dtype, device, mesh,
+                    "row" if self.split else None),
+            Dropout(cfg.dropout, mesh))
         self.norm2 = LayerNorm(h, 1e-5, affine=False)
 
     def forward(self, x, c, mask_add):
@@ -280,7 +414,7 @@ class SELayer(nn.Module):
          gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
         attn_out = self.attn(x, None, mask_add)
         x = x + gate_msa * (self.norm1(attn_out) * (1 + scale_msa) + shift_msa)
-        y = self.mlp(x)
+        y = self.mlp(copy_to_tp(x, self.mesh) if self.split else x)
         return x + gate_mlp * (self.norm2(y) * (1 + scale_mlp) + shift_mlp)
 
 
@@ -309,12 +443,13 @@ class FeatureEmbedding(nn.Module):
     """Linear -> LayerNorm -> Dropout input embedding (reference
     BertEmbeddings)."""
 
-    def __init__(self, cfg: TransformerConfig, in_features: int, device=None):
+    def __init__(self, cfg: TransformerConfig, in_features: int, device=None,
+                 mesh=None):
         super().__init__()
         self.linear = Linear(in_features, cfg.hidden_size, cfg.dtype, device)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                    device=device)
-        self.dropout = Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout, mesh)
 
     def forward(self, x):
         return self.dropout(self.LayerNorm(self.linear(x)))
@@ -353,6 +488,30 @@ def _init_(model: nn.Module, generator: torch.Generator, init_linear,
         m.adaLN_modulation[0].weight.zero_()
         m.adaLN_modulation[0].bias.zero_()
     return model
+
+
+@torch.no_grad()
+def shard_init(model: nn.Module, mesh, build, seed: int | None):
+    """For a model built on a ``mesh``: its sharding rules (the
+    ``param_sharding_rules`` of the one-device model's state_dict, read
+    off ``build("meta", None)``), and, with a ``seed``, the one-device
+    model's seeded weights (``build(device, seed)``) cut to this rank's
+    shard and loaded. None without a mesh."""
+    if mesh is None:
+        return None
+    from e3diff_tpu_torch.parallel.mesh import (
+        load_shard,
+        param_sharding_rules,
+        shard_params,
+    )
+
+    full = build("meta", None)
+    rules = param_sharding_rules(full.state_dict(), mesh,
+                                 full.encoder_config.num_heads)
+    if seed is not None:
+        full = build(mesh.device, seed)
+        load_shard(model, shard_params(full.state_dict(), mesh, rules=rules))
+    return rules
 
 
 @torch.no_grad()

@@ -33,6 +33,7 @@ from e3diff_tpu_torch.models.blocks import (
     init_torch_default_,
     init_xavier_all_,
     kernel_mask,
+    shard_init,
 )
 from e3diff_tpu_torch.models.config import TransformerConfig
 from e3diff_tpu_torch.utils.device import resolve_device
@@ -43,28 +44,42 @@ class SequenceDenoiser(nn.Module):
 
     ``seed`` draws random weights on ``device`` by the configs'
     ``init_style`` (xavier_all for this model); ``seed=None`` leaves them
-    uninitialised, for a state_dict load or for ``device="meta"``."""
+    uninitialised, for a state_dict load or for ``device="meta"``.
+    ``mesh`` (parallel/mesh.py): the model is this rank's tensor-parallel
+    shard, on ``mesh.device``, and ``seed`` draws the one-device model's
+    weights and keeps the shard."""
 
     def __init__(self, encoder_config: TransformerConfig,
                  decoder_config: TransformerConfig, *, n_classes: int = 20,
                  n_angle_features: int = 8, device="cuda",
-                 seed: int | None = 0):
+                 seed: int | None = 0, mesh=None):
         super().__init__()
-        device = resolve_device(device)
+        device = resolve_device(device if mesh is None else mesh.device)
         enc, dec = encoder_config, decoder_config
         self.encoder_config, self.decoder_config = enc, dec
         self.timestep_projector = GaussianFourierProjection(dec, device)
-        self.ligand_seq_embedding = FeatureEmbedding(enc, n_classes, device)
+        self.ligand_seq_embedding = FeatureEmbedding(enc, n_classes, device,
+                                                     mesh)
         self.ligand_angle_embedding = FeatureEmbedding(enc, n_angle_features,
-                                                       device)
-        self.ligand_feature_emb = SELayer(enc, device)  # both branches (Q7)
-        self.receptor_seq_embedding = FeatureEmbedding(enc, n_classes, device)
+                                                       device, mesh)
+        # both branches (Q7)
+        self.ligand_feature_emb = SELayer(enc, device, mesh)
+        self.receptor_seq_embedding = FeatureEmbedding(enc, n_classes, device,
+                                                       mesh)
         self.receptor_angle_embedding = FeatureEmbedding(
-            enc, n_angle_features, device)
-        self.decoder = TransformerStack(dec, device)
-        self.decoder_normalize = SELayer(dec, device)
+            enc, n_angle_features, device, mesh)
+        self.decoder = TransformerStack(dec, device, mesh)
+        self.decoder_normalize = SELayer(dec, device, mesh)
         self.amino_acid_predictor = MLPHead(dec, n_classes, device)
-        if seed is not None and device.type != "meta":
+        self.mesh = mesh
+        # on a mesh: the rules of the one-device model's state_dict, and
+        # its seeded weights cut to this rank's shard
+        self.sharding_rules = shard_init(
+            self, mesh, lambda dev, seed: SequenceDenoiser(
+                enc, dec, n_classes=n_classes,
+                n_angle_features=n_angle_features, device=dev, seed=seed),
+            None if device.type == "meta" else seed)
+        if seed is not None and device.type != "meta" and mesh is None:
             gen = torch.Generator(device=device).manual_seed(seed)
             if enc.init_style == "xavier_all":
                 init_xavier_all_(self, gen,

@@ -29,6 +29,7 @@ from e3diff_tpu_torch.models.blocks import (
     TransformerStack,
     init_torch_default_,
     kernel_mask,
+    shard_init,
 )
 from e3diff_tpu_torch.models.config import TransformerConfig
 from e3diff_tpu_torch.utils.device import resolve_device
@@ -39,25 +40,38 @@ class StructureDenoiser(nn.Module):
 
     ``seed`` draws random weights on ``device`` (reference torch-default
     init); ``seed=None`` leaves them uninitialised, for a state_dict load
-    or for ``device="meta"``."""
+    or for ``device="meta"``. ``mesh`` (parallel/mesh.py): the model is
+    this rank's tensor-parallel shard, on ``mesh.device``, and ``seed``
+    draws the one-device model's weights and keeps the shard."""
 
     def __init__(self, encoder_config: TransformerConfig,
                  decoder_config: TransformerConfig, *, n_features: int = 8,
-                 n_aa: int = 20, device="cuda", seed: int | None = 0):
+                 n_aa: int = 20, device="cuda", seed: int | None = 0,
+                 mesh=None):
         super().__init__()
-        device = resolve_device(device)
+        device = resolve_device(device if mesh is None else mesh.device)
         enc, dec = encoder_config, decoder_config
         self.encoder_config, self.decoder_config = enc, dec
-        self.receptor_angle_emb = FeatureEmbedding(enc, n_features, device)
-        self.receptor_seq_emb = FeatureEmbedding(enc, n_aa, device)
-        self.receptor_emb = SELayer(enc, device)
-        self.encoder = TransformerStack(enc, device)
-        self.ligand_angle_emb = FeatureEmbedding(dec, n_features, device)
+        self.receptor_angle_emb = FeatureEmbedding(enc, n_features, device,
+                                                   mesh)
+        self.receptor_seq_emb = FeatureEmbedding(enc, n_aa, device, mesh)
+        self.receptor_emb = SELayer(enc, device, mesh)
+        self.encoder = TransformerStack(enc, device, mesh)
+        self.ligand_angle_emb = FeatureEmbedding(dec, n_features, device,
+                                                 mesh)
         self.timestep_projector = GaussianFourierProjection(dec, device)
-        self.timestep_emb = SELayer(dec, device)
-        self.decoder = TransformerStack(dec, device)
+        self.timestep_emb = SELayer(dec, device, mesh)
+        self.decoder = TransformerStack(dec, device, mesh)
         self.angles_predictor = MLPHead(dec, n_features, device)
-        if seed is not None and device.type != "meta":
+        self.mesh = mesh
+        # on a mesh: the rules of the one-device model's state_dict, and
+        # its seeded weights cut to this rank's shard
+        self.sharding_rules = shard_init(
+            self, mesh, lambda dev, seed: StructureDenoiser(
+                enc, dec, n_features=n_features, n_aa=n_aa, device=dev,
+                seed=seed),
+            None if device.type == "meta" else seed)
+        if seed is not None and device.type != "meta" and mesh is None:
             gen = torch.Generator(device=device).manual_seed(seed)
             init_torch_default_(self, gen)
         self.eval()

@@ -102,16 +102,16 @@ def load_library() -> ctypes.CDLL:
                                       p]
         lib.e3d_layernorm.restype = i
         f, u = ctypes.c_float, ctypes.c_uint32
-        lib.e3d_attention_train.argtypes = [p] * 8 + [i] * 5 + [u, f, i, p]
+        lib.e3d_attention_train.argtypes = [p] * 8 + [i] * 8 + [u, f, i, p]
         lib.e3d_attention_train.restype = i
-        lib.e3d_attention_backward.argtypes = ([p] * 14 + [i] * 6
+        lib.e3d_attention_backward.argtypes = ([p] * 14 + [i] * 9
                                                + [u, f, i, p])
         lib.e3d_attention_backward.restype = i
         lib.e3d_attention_backward_occupancy.argtypes = [i, i, i, p]
         lib.e3d_attention_backward_occupancy.restype = i
         lib.e3d_layernorm_backward.argtypes = [p] * 9 + [i, i, f, i, i, p]
         lib.e3d_layernorm_backward.restype = i
-        lib.e3d_dropout_keep.argtypes = [p, i, i, i, i, u, p, p]
+        lib.e3d_dropout_keep.argtypes = [p, i, i, i, i, i, i, i, u, p, p]
         lib.e3d_dropout_keep.restype = i
         lib.e3d_attention_train_occupancy.argtypes = [i, i, i, p]
         lib.e3d_attention_train_occupancy.restype = i

@@ -12,9 +12,12 @@ from __future__ import annotations
 import torch
 
 
-def elbo_loss(logits_pred, logits_target, mask=None, eps: float = 1e-6):
+def elbo_loss(logits_pred, logits_target, mask=None, eps: float = 1e-6,
+              count=None):
     """NLL (the prediction's entropy) + KL(softmax(target) ||
-    softmax(pred)). logits: (..., K); mask: the leading dims, or None."""
+    softmax(pred)). logits: (..., K); mask: the leading dims, or None;
+    ``count``: the masked rows' count to divide by (a global count on a
+    mesh), the mask's own sum when None."""
     probs1 = torch.softmax(logits_pred, dim=-1)
     probs2 = torch.softmax(logits_target, dim=-1)
     log_probs1 = torch.log_softmax(logits_pred + eps, dim=-1)
@@ -24,5 +27,5 @@ def elbo_loss(logits_pred, logits_target, mask=None, eps: float = 1e-6):
     if mask is None:
         return kl_row.sum() / kl_row.numel() + nll_row.mean()
     m = mask.to(kl_row.dtype)
-    n = torch.clamp(m.sum(), min=1.0)
+    n = torch.clamp(m.sum() if count is None else count, min=1.0)
     return (kl_row * m).sum() / n + (nll_row * m).sum() / n

@@ -178,22 +178,62 @@ def philox4x32_10(counter, key):
     return c0, c1, c2, c3
 
 
-def dropout_keep_plain(seed, shape, dropout_p: float):
+def resolve_dropout_block(shape, block=None) -> tuple[int, int, int, int]:
+    """(row_offset, total_rows, head_offset, total_heads) of a rank's
+    (B, H, Lq, Lk) block of dropout bits inside a (total_rows,
+    total_heads, Lq, Lk) draw, checked; None is the whole draw,
+    (0, B, 0, H)."""
+    b, h = shape[0], shape[1]
+    if block is None:
+        return 0, b, 0, h
+    r0, rows, h0, heads = (int(x) for x in block)
+    if not (0 <= r0 and r0 + b <= rows and 0 <= h0 and h0 + h <= heads):
+        raise ValueError(f"dropout block {tuple(block)} does not hold "
+                         f"{b} rows and {h} heads")
+    return r0, rows, h0, heads
+
+
+def dropout_keep_plain(seed, shape, dropout_p: float, block=None):
     """The keep mask (bool, ``shape`` = (B, H, Lq, Lk)) that the training
     kernels draw for ``seed`` (2 int64; their low 32 bits are the Philox
     key): element n of the flattened shape is kept iff the 16-bit half
     n mod 2 (0: low) of word (n mod 8) // 2 of Philox4x32-10 at counter
     (n // 8 mod 2^32, n // 2^35, 0, 0) is >= ``dropout_threshold``.
-    Torch integer ops on seed's device."""
-    numel = math.prod(shape)
-    c = torch.arange((numel + 7) // 8, dtype=torch.int64, device=seed.device)
-    zero = torch.zeros_like(c)
+
+    ``block`` = (row_offset, total_rows, head_offset, total_heads): the
+    bits of element (b, h, l, r) are those of element (b + row_offset,
+    h + head_offset, l, r) of a (total_rows, total_heads, Lq, Lk) draw,
+    n = (((b + row_offset) total_heads + h + head_offset) Lq + l) Lk + r:
+    a rank's block of the one-device bits, drawn alone (the default,
+    (0, B, 0, H), is the whole draw). Torch integer ops on seed's
+    device."""
+    b, h, lq, lk = shape
+    r0, _, h0, heads = resolve_dropout_block(shape, block)
+    run = lq * lk
+    dev = seed.device
+    # the flat index of each (b, h) run's first element
+    bh = ((torch.arange(b, dtype=torch.int64, device=dev) + r0)[:, None]
+          * heads + torch.arange(h, dtype=torch.int64, device=dev) + h0)
     key = seed.to(torch.int64) & _U32
+    if run % 8 == 0:
+        # each run starts a Philox counter: one call gives 8 bits
+        c = (bh.reshape(-1, 1) * (run // 8)
+             + torch.arange(run // 8, dtype=torch.int64, device=dev))
+        zero = torch.zeros_like(c)
+        words = torch.stack(philox4x32_10((c & _U32, c >> 32, zero, zero),
+                                          (key[0], key[1])), dim=-1)
+        halves = torch.stack((words & 0xFFFF, words >> 16), dim=-1)
+        keep = halves.reshape(b * h, run) >= dropout_threshold(dropout_p)
+        return keep.reshape(shape)
+    n = (bh.reshape(-1, 1) * run
+         + torch.arange(run, dtype=torch.int64, device=dev))
+    c = n >> 3
+    zero = torch.zeros_like(c)
     words = torch.stack(philox4x32_10((c & _U32, c >> 32, zero, zero),
                                       (key[0], key[1])), dim=-1)
-    halves = torch.stack((words & 0xFFFF, words >> 16), dim=-1)
-    keep = halves.reshape(-1)[:numel] >= dropout_threshold(dropout_p)
-    return keep.reshape(shape)
+    word = words.gather(-1, ((n & 7) >> 1)[..., None])[..., 0]
+    half = (word >> (16 * (n & 1))) & 0xFFFF
+    return (half >= dropout_threshold(dropout_p)).reshape(shape)
 
 
 def attention_plain(q, k, v, mask_add, rel_table=None, *, num_heads: int,
@@ -327,12 +367,13 @@ def _check_seed(name, seed, q, dropout_p):
         raise ValueError(f"{name}: dropout_p {dropout_p} not in [0, 1)")
 
 
-def _keep_from_seed(seed, q, k, num_heads: int, dropout_p: float):
+def _keep_from_seed(seed, q, k, num_heads: int, dropout_p: float,
+                    block=None):
     """The plain versions' keep mask for a seed (None without one)."""
     if seed is None:
         return None
     return dropout_keep_plain(seed, (q.shape[0], num_heads, q.shape[1],
-                                     k.shape[1]), dropout_p)
+                                     k.shape[1]), dropout_p, block)
 
 
 def fused_attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
@@ -371,23 +412,26 @@ fused_attention.launches = 0
 
 def fused_attention_train(q, k, v, mask_add, rel_table=None, seed=None,
                           dropout_p: float = 0.0, *, num_heads: int,
-                          max_pos: int):
+                          max_pos: int, dropout_block=None):
     """The training forward of the attention core: ``fused_attention``'s
     output with the probabilities dropped where
     ``dropout_keep_plain(seed, (B, H, Lq, Lk), dropout_p)`` is False and
     scaled by 1 / (1 - dropout_p) where it is True (seed None: no
     dropout), and each query row's f32 log-sum-exp (B, H, Lq) for the
     backward. The kernel draws the bits itself from the seed's device
-    memory."""
+    memory. ``dropout_block`` = (row_offset, total_rows, head_offset,
+    total_heads): draw this rank's block of a larger draw (see
+    ``dropout_keep_plain``)."""
     b, lq, _ = q.shape
     lk = k.shape[1]
     _check_seed("fused_attention_train", seed, q, dropout_p)
+    block = resolve_dropout_block(q.shape[:1] + (num_heads,), dropout_block)
     if _check_attention("fused_attention_train", q, k, v, mask_add,
                         rel_table, num_heads, max_pos):
         return attention_train_plain(
             q, k, v, mask_add, rel_table,
-            _keep_from_seed(seed, q, k, num_heads, dropout_p), dropout_p,
-            num_heads=num_heads, max_pos=max_pos)
+            _keep_from_seed(seed, q, k, num_heads, dropout_p, block),
+            dropout_p, num_heads=num_heads, max_pos=max_pos)
     if q.dtype == torch.bfloat16:
         _check_aligned16("fused_attention_train", q, k, v,
                          *([rel_table] if rel_table is not None else []))
@@ -398,8 +442,8 @@ def fused_attention_train(q, k, v, mask_add, rel_table=None, seed=None,
     code = lib.e3d_attention_train(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask_add), _ptr(rel_table),
         _ptr(seed), _ptr(out), _ptr(lse), b, lq, lk, num_heads, max_pos,
-        dropout_threshold(dropout_p), drop_scale(dropout_p),
-        _DTYPE_CODE[q.dtype], _stream())
+        block[0], block[2], block[3], dropout_threshold(dropout_p),
+        drop_scale(dropout_p), _DTYPE_CODE[q.dtype], _stream())
     _raise_on_error("fused_attention_train", code)
     fused_attention_train.launches += 1
     return out, lse
@@ -428,17 +472,19 @@ def _bwd_group(device, b: int, lq: int, lk: int, num_heads: int) -> int:
 
 def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
                        seed=None, dropout_p: float = 0.0, *, num_heads: int,
-                       max_pos: int):
+                       max_pos: int, dropout_block=None):
     """Gradients of ``fused_attention_train`` with respect to q, k, v (in
     q's type) and the distance table (f32, None without a table), given
     the output's gradient ``dout``, the forward's row log-sum-exp and its
-    dropout seed (the kernel redraws the same keep bits). On the card the
-    table gradient is summed over (b, h) in a fixed order (per-block
-    slices, then a sum kernel): the same bits on every run."""
+    dropout seed (the kernel redraws the same keep bits, of the forward's
+    ``dropout_block``). On the card the table gradient is summed over
+    (b, h) in a fixed order (per-block slices, then a sum kernel): the
+    same bits on every run."""
     b, lq, _ = q.shape
     lk = k.shape[1]
     name = "attention_backward"
     _check_seed(name, seed, q, dropout_p)
+    block = resolve_dropout_block(q.shape[:1] + (num_heads,), dropout_block)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype} "
                          f"against q {tuple(q.shape)} {q.dtype}")
@@ -448,8 +494,8 @@ def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
                         max_pos):
         return attention_backward_plain(
             dout, q, k, v, lse, mask_add, rel_table,
-            _keep_from_seed(seed, q, k, num_heads, dropout_p), dropout_p,
-            num_heads=num_heads, max_pos=max_pos)
+            _keep_from_seed(seed, q, k, num_heads, dropout_p, block),
+            dropout_p, num_heads=num_heads, max_pos=max_pos)
     if lse.dtype != torch.float32:
         raise ValueError(f"{name}: lse must be float32")
     _check_cuda(name, q, dout, lse)
@@ -474,8 +520,9 @@ def attention_backward(dout, q, k, v, lse, mask_add, rel_table=None,
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(mask_add),
         _ptr(rel_table), _ptr(seed), _ptr(lse), _ptr(delta), _ptr(dq),
         _ptr(dk), _ptr(dv), _ptr(dtable), _ptr(dtable_part), b, lq, lk,
-        num_heads, max_pos, group, dropout_threshold(dropout_p),
-        drop_scale(dropout_p), _DTYPE_CODE[q.dtype], _stream())
+        num_heads, max_pos, group, block[0], block[2], block[3],
+        dropout_threshold(dropout_p), drop_scale(dropout_p),
+        _DTYPE_CODE[q.dtype], _stream())
     _raise_on_error(name, code)
     attention_backward.launches += 1
     return dq, dk, dv, dtable
@@ -491,13 +538,14 @@ class FusedAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask_add, rel_table, seed, dropout_p,
-                num_heads, max_pos):
+                num_heads, max_pos, block):
         out, lse = fused_attention_train(q, k, v, mask_add, rel_table, seed,
                                          dropout_p, num_heads=num_heads,
-                                         max_pos=max_pos)
+                                         max_pos=max_pos, dropout_block=block)
         ctx.save_for_backward(q, k, v, lse, mask_add, rel_table, seed)
         ctx.dropout_p, ctx.num_heads, ctx.max_pos = (dropout_p, num_heads,
                                                       max_pos)
+        ctx.block = block
         return out
 
     @staticmethod
@@ -505,24 +553,27 @@ class FusedAttentionFn(torch.autograd.Function):
         q, k, v, lse, mask_add, rel_table, seed = ctx.saved_tensors
         dq, dk, dv, dtable = attention_backward(
             dout.contiguous(), q, k, v, lse, mask_add, rel_table, seed,
-            ctx.dropout_p, num_heads=ctx.num_heads, max_pos=ctx.max_pos)
+            ctx.dropout_p, num_heads=ctx.num_heads, max_pos=ctx.max_pos,
+            dropout_block=ctx.block)
         if dtable is not None:
             dtable = dtable.to(rel_table.dtype)
-        return dq, dk, dv, None, dtable, None, None, None, None
+        return dq, dk, dv, None, dtable, None, None, None, None, None
 
 
 def attention_autograd(q, k, v, mask_add, rel_table, seed, dropout_p: float,
-                       *, num_heads: int, max_pos: int):
+                       *, num_heads: int, max_pos: int, dropout_block=None):
     """The differentiable attention core: ``FusedAttentionFn`` on the card,
     the plain version (through autograd, given the seed's keep mask) on
     the CPU."""
     if q.device.type == "cpu":
         return attention_autograd_plain(
             q, k, v, mask_add, rel_table,
-            _keep_from_seed(seed, q, k, num_heads, dropout_p), dropout_p,
+            _keep_from_seed(seed, q, k, num_heads, dropout_p,
+                            dropout_block), dropout_p,
             num_heads=num_heads, max_pos=max_pos)
     return FusedAttentionFn.apply(q, k, v, mask_add, rel_table, seed,
-                                  dropout_p, num_heads, max_pos)
+                                  dropout_p, num_heads, max_pos,
+                                  dropout_block)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -532,13 +583,14 @@ def _needs_grad(*tensors) -> bool:
 
 def attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
               max_pos: int, dropout_p: float = 0.0,
-              generator: torch.Generator | None = None):
+              generator: torch.Generator | None = None, dropout_block=None):
     """The models' attention core. With dropout_p > 0 a dropout seed is
     drawn here, 2 int64 in [0, 2^32) from ``generator`` on q's device
     (the kernels draw the keep bits from it, keeping a probability with
-    probability 1 - p as flax's Dropout does); with dropout or an input
-    that needs a gradient the core goes through ``attention_autograd``,
-    else through the inference kernel."""
+    probability 1 - p as flax's Dropout does; ``dropout_block``: this
+    rank's block of the one-device bits, see ``dropout_keep_plain``); with
+    dropout or an input that needs a gradient the core goes through
+    ``attention_autograd``, else through the inference kernel."""
     if dropout_p > 0.0 or _needs_grad(q, k, v, rel_table):
         seed = None
         if dropout_p > 0.0:
@@ -546,7 +598,8 @@ def attention(q, k, v, mask_add, rel_table=None, *, num_heads: int,
                                  generator=generator, device=q.device)
         return attention_autograd(q, k, v, mask_add, rel_table, seed,
                                   dropout_p, num_heads=num_heads,
-                                  max_pos=max_pos)
+                                  max_pos=max_pos,
+                                  dropout_block=dropout_block)
     return fused_attention(q, k, v, mask_add, rel_table, num_heads=num_heads,
                            max_pos=max_pos)
 

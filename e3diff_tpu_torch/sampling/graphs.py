@@ -20,6 +20,10 @@ raises; nothing falls back to eager launches.
 The kernels' launch counters (ops/kernels.py) move when a kernel is
 launched from Python: in the warm-up and at capture, never on replay. A
 capture records its own launches by kernel name in ``launches``.
+
+A tensor-parallel model's NCCL all-reduces are captured with the rest of
+its call; a gloo mesh's collectives stage through the host and cannot
+be: ``check_capturable`` refuses them.
 """
 
 from __future__ import annotations
@@ -81,6 +85,15 @@ class CapturedCall:
         """Free the graph and what it returned."""
         self.graph.reset()
         self.out = None
+
+
+def check_capturable(mesh, graphs: bool) -> None:
+    """Raise when CUDA graphs would capture a gloo mesh's collectives."""
+    if graphs and mesh is not None and not mesh.can_capture:
+        raise RuntimeError(
+            f"a {mesh.backend} mesh's collectives cannot be captured in a "
+            "CUDA graph: run eagerly (train_step, or a sampler built with "
+            "eager=True), or build the mesh on NCCL")
 
 
 def fill_static(buf: torch.Tensor, value) -> None:

@@ -11,7 +11,8 @@ forward are CUDA graphs captured once per bucket and replayed (as in
 sampling/structure.py); on the CPU, or when asked (``eager=True``), the
 same step runs as a Python loop, on the same draws. ``generated_angles``
 replaces the native ligand backbone angles with the structure sampler's
-(the end-to-end pipeline).
+(the end-to-end pipeline). A mesh model samples its rank's dp rows, as
+in sampling/structure.py.
 """
 
 from __future__ import annotations
@@ -27,7 +28,11 @@ from e3diff_tpu_torch.diffusion.guidance import (
     concat_cond_uncond,
     guided_combine,
 )
-from e3diff_tpu_torch.sampling.graphs import CapturedCall, fill_static
+from e3diff_tpu_torch.sampling.graphs import (
+    CapturedCall,
+    check_capturable,
+    fill_static,
+)
 from e3diff_tpu_torch.utils.device import resolve_device
 from e3diff_tpu_torch.utils.graph_cache import GraphCache
 
@@ -133,7 +138,9 @@ def make_sequence_sampler(model, d3pm: D3PMDiffusion, *, diverse: bool = True,
     that x_init and then every step's Gumbel noise are drawn from, before
     the first step; or noise = {"x_init": (B, L, K) one-hots, "gumbel":
     (n_pairs, B, L, K)} to inject the draws ("gumbel" may be left out when
-    ``diverse`` is False).
+    ``diverse`` is False). On a mesh model the batch and injected draws
+    are the rank's dp rows, and the generator's draws are made at the
+    global batch's shape and cut.
 
     A guidance scale other than 1 (or guided=True) runs classifier-free
     guidance on the logits as one 2B forward per step. The scale, a number
@@ -149,6 +156,8 @@ def make_sequence_sampler(model, d3pm: D3PMDiffusion, *, diverse: bool = True,
                       and float(guidance_scale) == 1.0)
     device = next(model.parameters()).device
     graphs = device.type == "cuda" and not eager
+    mesh = getattr(model, "mesh", None)
+    check_capturable(mesh, graphs)
     if graphs and cache is None:
         cache = GraphCache()
     flags = ("sequence", diverse, n_steps, guided)
@@ -171,9 +180,14 @@ def make_sequence_sampler(model, d3pm: D3PMDiffusion, *, diverse: bool = True,
             raise ValueError("pass a generator or injected noise")
         lig = batch["ligand_seq"]
         if noise is None:
+            n = lig.shape[0]
+            r0, rows = (0, n) if mesh is None else mesh.rows(n)
             x_init, gumbel = d3pm.draw_noise(
-                lig.shape, n_steps, generator=generator, device=device,
-                dtype=lig.dtype, diverse=diverse)
+                (rows,) + tuple(lig.shape[1:]), n_steps, generator=generator,
+                device=device, dtype=lig.dtype, diverse=diverse)
+            x_init = x_init[r0:r0 + n]
+            if gumbel is not None:
+                gumbel = gumbel[:, r0:r0 + n]
         else:
             x_init, gumbel = noise["x_init"], noise.get("gumbel")
             if diverse and gumbel is None:

@@ -12,6 +12,13 @@ CPU, or when asked (``eager=True``), the same step runs as a Python loop.
 Both paths read the same draws, so one seed gives the same samples either
 way. Reference quirk Q5 (only the first batch is sampled, sample.py:237)
 is ``first_batch_only=True`` by default.
+
+A model built on a mesh (parallel/mesh.py) samples the rank's dp rows of
+a global batch with its tp shard: the noise is drawn at the global
+batch's shape and the rank keeps its rows, so every rank of one seed
+draws what one device would. NCCL's collectives are captured in the
+graphs; a gloo mesh's cannot be, and there the sampler runs with
+``eager=True``.
 """
 
 from __future__ import annotations
@@ -24,7 +31,11 @@ import torch
 from e3diff_tpu_torch.data.dataset import strip_meta
 from e3diff_tpu_torch.diffusion.gaussian import GaussianAngleDiffusion
 from e3diff_tpu_torch.diffusion.guidance import guided_combine, null_receptor
-from e3diff_tpu_torch.sampling.graphs import CapturedCall, fill_static
+from e3diff_tpu_torch.sampling.graphs import (
+    CapturedCall,
+    check_capturable,
+    fill_static,
+)
 from e3diff_tpu_torch.utils.device import resolve_device
 from e3diff_tpu_torch.utils.graph_cache import GraphCache
 
@@ -124,7 +135,9 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
     host (pinned memory makes the copies asynchronous). generator: the
     device generator the noise is drawn from before the first step, x_init
     first and then every step's z; or noise = {"x_init": (B, L, F),
-    "z": (n_steps, B, L, F)} to inject the draws instead.
+    "z": (n_steps, B, L, F)} to inject the draws instead. On a mesh model
+    the batch and injected draws are the rank's dp rows, and the
+    generator's draws are made at the global batch's shape and cut.
 
     sampler "ddpm" is the reference's ancestral loop (T forwards, or T/step
     with the lossy stride); "ddim" runs ddim_steps forwards. A guidance
@@ -145,6 +158,8 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
     ts, t_prev = diffusion.ladder(sampler, step=step, n_steps=ddim_steps)
     device = next(model.parameters()).device
     graphs = device.type == "cuda" and not eager
+    mesh = getattr(model, "mesh", None)
+    check_capturable(mesh, graphs)
     if graphs and cache is None:
         cache = GraphCache()
     flags = ("structure", step, return_trajectory, sampler, ddim_steps,
@@ -168,9 +183,12 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
             raise ValueError("pass a generator or injected noise")
         lig = batch["ligand_angles"]
         if noise is None:
+            n = lig.shape[0]
+            r0, rows = (0, n) if mesh is None else mesh.rows(n)
             x_init, z = diffusion.draw_noise(
-                lig.shape, len(ts), generator=generator, device=device,
-                dtype=lig.dtype)
+                (rows,) + tuple(lig.shape[1:]), len(ts), generator=generator,
+                device=device, dtype=lig.dtype)
+            x_init, z = x_init[r0:r0 + n], z[:, r0:r0 + n]
         else:
             x_init, z = noise["x_init"], noise["z"]
         w = guidance_scale if scale is None else scale

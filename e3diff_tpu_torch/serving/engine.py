@@ -1,6 +1,5 @@
 """Design engine: both models -> batched pocket-conditioned peptide design
-(counterpart of e3diff_tpu/serving/engine.py, without the multi-device
-``mesh`` and without Orbax restore).
+(counterpart of e3diff_tpu/serving/engine.py, without Orbax restore).
 
 A design request is a preprocessing-schema complex record (the
 reference's biolip.pt element layout, clean_data/data_preprocessing.py:
@@ -22,6 +21,15 @@ A batch's features go to the programs' static buffers as asynchronous
 copies from page-locked host memory. One lock serialises the device work
 of concurrent callers: the replays, and the reading back of each batch's
 results before the next batch replays.
+
+With a ``mesh`` (parallel/mesh.py; both models built on it) every batch
+bucket must divide by dp. Rank 0 is the controller: it takes the
+requests, and broadcasts each device batch (the stacked slots, the
+sampler's scales and a seed drawn from the caller's generator) to the
+other ranks, which run ``follow()`` until ``stop_followers()``. Each rank
+samples its dp rows (the noise drawn at the batch's shape from a
+generator of that seed, and cut), and the rows come back to rank 0 as
+host arrays over the mesh's gloo group.
 """
 
 from __future__ import annotations
@@ -102,11 +110,15 @@ def _fresh_generator(device) -> torch.Generator:
 
 
 class DesignEngine:
-    """Serves batched design requests with both models on one device.
+    """Serves batched design requests with both models on one device, or
+    over a mesh.
 
     cfg: the sampling config (utils/presets.py::ExperimentConfig or any
     object with pocket_ext, max_seq_len and ligand_max_len). The models
-    carry their weights, on ``device``."""
+    carry their weights, on ``device``. ``mesh``: the mesh both models
+    were built for (rank 0 leads, the others ``follow()``); on a mesh
+    whose collectives cannot be captured (gloo) the samplers run their
+    eager loop."""
 
     _DEVICE_KEYS = ("ligand_angles", "ligand_attn_mask", "ligand_seq",
                     "receptor_angles", "receptor_attn_mask", "receptor_seq")
@@ -120,8 +132,13 @@ class DesignEngine:
                  seq_guidance_scale: float = 1.0, enable_cfg: bool = False,
                  ligand_buckets: Sequence[int] | None = None,
                  receptor_buckets: Sequence[int] | None = None,
-                 batch_buckets: Sequence[int] | None = None):
-        self.device = resolve_device(device)
+                 batch_buckets: Sequence[int] | None = None, mesh=None):
+        self.mesh = mesh
+        eager = mesh is not None and not mesh.can_capture
+        for m in (structure_model, sequence_model):
+            if getattr(m, "mesh", None) is not mesh:
+                raise ValueError("the models were built for another mesh")
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.cfg = cfg
         self.batch_size = batch_size
         self.ligand_buckets = _buckets(
@@ -134,6 +151,12 @@ class DesignEngine:
         self.batch_buckets = _buckets(
             [*(batch_buckets or []), batch_size], batch_size, "batch",
             "batch_size")
+        if mesh is not None:
+            for b in self.batch_buckets:
+                if b % mesh.dp:
+                    raise ValueError(
+                        f"batch bucket {b} must be divisible by the mesh's "
+                        f"dp extent {mesh.dp} (fixed serving shapes)")
         self.structure_model = structure_model
         self.sequence_model = sequence_model
         self.structure_diffusion = structure_diffusion
@@ -152,11 +175,11 @@ class DesignEngine:
             return_trajectory=False, sampler=sampler,
             ddim_steps=ddim_steps, ddim_eta=ddim_eta,
             guidance_scale=guidance_scale, guided=self._struct_guided,
-            cache=self.graphs)
+            cache=self.graphs, eager=eager)
         self._seq_run = make_sequence_sampler(
             sequence_model, sequence_d3pm, diverse=diverse,
             n_steps=seq_skip_steps, guidance_scale=seq_guidance_scale,
-            guided=self._seq_guided, cache=self.graphs)
+            guided=self._seq_guided, cache=self.graphs, eager=eager)
         # one device, callers on many threads: one batch at a time
         self._device_lock = threading.Lock()
         self._warm = False
@@ -167,14 +190,16 @@ class DesignEngine:
                          transition: str = "uniform",
                          params_dtype: str | None = None,
                          seq_params_dtype: str | None = None,
-                         device="cuda", **kwargs) -> "DesignEngine":
+                         device="cuda", mesh=None,
+                         **kwargs) -> "DesignEngine":
         """An engine from two reference-layout ``.pt`` state_dicts (the
         reference's own, or the JAX package's ``export_*_state_dict``),
         each model's architecture from its ``config.json`` sidecar.
 
         params_dtype: weight storage of both models (one of
         utils/params_io.py's PARAMS_DTYPES); seq_params_dtype: the sequence
-        model's, when it should differ (None: params_dtype)."""
+        model's, when it should differ (None: params_dtype). ``mesh``:
+        every rank loads both files, stores them, and keeps its shard."""
         from e3diff_tpu_torch.utils import builders
         from e3diff_tpu_torch.utils.params_io import (
             cast_inference_params,
@@ -199,18 +224,33 @@ class DesignEngine:
             cfg, timesteps=qside.get("timesteps", 50),
             num_hidden_layers=qside.get("num_hidden_layers", 6))
 
+        if mesh is not None:
+            device = mesh.device
         smodel = builders.build_structure_model(cfg, device=device)
         load_structure_checkpoint(structure_ckpt, smodel)
         cast_inference_params(smodel, params_dtype)
         qmodel = builders.build_sequence_model(qcfg, device=device)
         load_sequence_checkpoint(sequence_ckpt, qmodel, qcfg.timesteps)
         cast_inference_params(qmodel, seq_params_dtype)
+        if mesh is not None:
+            from e3diff_tpu_torch.parallel import load_shard, shard_params
+
+            # the stored weights (int8 with its scales) cut to the shard
+            full = (smodel, qmodel)
+            smodel = builders.build_structure_model(cfg, device=device,
+                                                    mesh=mesh)
+            qmodel = builders.build_sequence_model(qcfg, device=device,
+                                                   mesh=mesh)
+            for shard, whole in zip((smodel, qmodel), full):
+                load_shard(shard, shard_params(
+                    whole.state_dict(), mesh, rules=shard.sharding_rules))
+            del full
         return cls(cfg, smodel,
                    builders.build_structure_diffusion(cfg, device=device),
                    qmodel,
                    builders.build_sequence_diffusion(qcfg, transition,
                                                      device=device),
-                   device=device, **kwargs)
+                   device=device, mesh=mesh, **kwargs)
 
     # ------------------------------------------------------------------
     def _pick_bucket(self, record: dict) -> int:
@@ -467,18 +507,26 @@ class DesignEngine:
         same-bucket chunk; the host reads each result once per batch."""
         batch = self._stack_slots(chunk)
         bsz = len(batch["ligand_attn_mask"])
-        tbatch = self._tensors(batch)
         struct_kw = self._scale_kwargs(chunk, bsz, self._struct_guided,
                                        "_guidance_scale", self.guidance_scale)
         seq_kw = self._scale_kwargs(chunk, bsz, self._seq_guided,
                                     "_seq_guidance_scale",
                                     self.seq_guidance_scale)
+        if self.mesh is not None:
+            angles_np, pred = self._lead(
+                "design", batch, self._seed(generator),
+                struct_kw=struct_kw, seq_kw=seq_kw)
+            coords = None
+            if any(want_pdb):
+                with self._device_lock:
+                    coords = nerf_build_backbone_batch(torch.from_numpy(
+                        angles_np).to(self.device)).cpu().numpy()
+            return self._results(chunk, batch, pred, angles_np, coords,
+                                 want_pdb)
+        tbatch = self._tensors(batch)
         with self._device_lock:
-            angles, _ = self._struct_run(tbatch, generator, **struct_kw)
-            seq_batch = dict(tbatch)
-            seq_batch["ligand_angles"] = angles.to(
-                tbatch["ligand_angles"].dtype)
-            logits = self._seq_run(seq_batch, generator, **seq_kw)
+            angles, logits = self._design_rows(tbatch, generator, struct_kw,
+                                               seq_kw)
             coords = None
             if any(want_pdb):
                 coords = nerf_build_backbone_batch(angles).cpu().numpy()
@@ -486,14 +534,94 @@ class DesignEngine:
             pred = logits.float().argmax(-1).cpu().numpy()
         return self._results(chunk, batch, pred, angles_np, coords, want_pdb)
 
+    def _design_rows(self, tbatch, generator, struct_kw, seq_kw):
+        """Both samplers over a batch of tensors: (angles, logits)."""
+        angles, _ = self._struct_run(tbatch, generator, **struct_kw)
+        seq_batch = dict(tbatch)
+        seq_batch["ligand_angles"] = angles.to(tbatch["ligand_angles"].dtype)
+        return angles, self._seq_run(seq_batch, generator, **seq_kw)
+
     def _inverse_fold_batch(self, chunk, generator, noise
                             ) -> list[DesignResult]:
         batch = self._stack_slots(chunk)
         seq_kw = self._scale_kwargs(
             chunk, len(batch["ligand_attn_mask"]), self._seq_guided,
             "_seq_guidance_scale", self.seq_guidance_scale)
+        if self.mesh is not None:
+            if noise is not None:
+                noise = {k: v.cpu() for k, v in noise.items()}
+            _, pred = self._lead("inverse_fold", batch, self._seed(generator),
+                                 seq_kw=seq_kw, noise=noise)
+            return self._results(chunk, batch, pred, batch["ligand_angles"])
         with self._device_lock:
             logits = self._seq_run(self._tensors(batch), generator,
                                    noise=noise, **seq_kw)
             pred = logits.float().argmax(-1).cpu().numpy()
         return self._results(chunk, batch, pred, batch["ligand_angles"])
+
+    # -- the mesh: rank 0 leads, the other ranks follow ------------------
+    def _seed(self, generator) -> int:
+        """A device batch's seed under a mesh, drawn from the caller's
+        generator: every rank seeds its own generator with it."""
+        return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device).item())
+
+    def _lead(self, kind: str, batch: dict, seed: int, **kw):
+        """Rank 0: broadcast one device batch, sample its own rows, and
+        collect every dp group's: (angles (B, L, 8) or None, argmax
+        classes (B, L)) as host arrays."""
+        if self.mesh.rank != 0:
+            raise RuntimeError("only rank 0 leads; the others follow()")
+        with self._device_lock:
+            self.mesh.broadcast_object((kind, batch, seed, kw))
+            parts = self.mesh.gather_objects(self._run_rows(kind, batch, seed,
+                                                            **kw))
+        # one part per dp group: its tp rank 0's
+        parts = parts[::self.mesh.tp]
+        angles = (None if parts[0][0] is None
+                  else np.concatenate([p[0] for p in parts]))
+        return angles, np.concatenate([p[1] for p in parts])
+
+    def _run_rows(self, kind, batch, seed, struct_kw=None, seq_kw=None,
+                  noise=None):
+        """This rank's dp rows of a broadcast batch through the samplers:
+        (angles or None, argmax classes) as host arrays."""
+        n = len(batch["ligand_attn_mask"]) // self.mesh.dp
+        rows = slice(self.mesh.dp_rank * n, (self.mesh.dp_rank + 1) * n)
+
+        def mine(kwargs):
+            return {k: (v[rows] if np.ndim(v) else v)
+                    for k, v in (kwargs or {}).items()}
+
+        tbatch = self._tensors({k: v[rows] for k, v in batch.items()})
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        if kind == "design":
+            angles, logits = self._design_rows(tbatch, gen, mine(struct_kw),
+                                               mine(seq_kw))
+            angles = angles.float().cpu().numpy()
+        else:
+            if noise is not None:
+                noise = {k: v[:, rows] if k == "gumbel" else v[rows]
+                         for k, v in noise.items()}
+            angles = None
+            logits = self._seq_run(tbatch, gen, noise=noise, **mine(seq_kw))
+        return angles, logits.float().argmax(-1).cpu().numpy()
+
+    def follow(self) -> None:
+        """Every rank but 0: run the device batches rank 0 broadcasts,
+        until ``stop_followers``."""
+        if self.mesh is None or self.mesh.rank == 0:
+            raise RuntimeError("follow() is for the ranks other than 0 of a "
+                               "mesh")
+        while True:
+            msg = self.mesh.broadcast_object()
+            if msg is None:
+                return
+            kind, batch, seed, kw = msg
+            self.mesh.gather_objects(self._run_rows(kind, batch, seed, **kw))
+
+    def stop_followers(self) -> None:
+        """Rank 0: release the other ranks from ``follow()``."""
+        if self.mesh is not None and self.mesh.rank == 0:
+            with self._device_lock:
+                self.mesh.broadcast_object(None)

@@ -25,6 +25,10 @@ writer's error is raised by the next save, and by ``close()``, which
 waits for every save. ``E3DIFF_SNAPSHOT_SAVES=0`` makes every save
 synchronous. Both kinds write the same bytes.
 
+In a multi-process run one rank (rank 0) writes (``writer``), after the
+trainer has gathered the whole state on every rank, and the saves are
+synchronous, as the JAX package's ``_snapshot_applicable`` has it.
+
 The reference keeps one best checkpoint by ModelCheckpoint(save_top_k=1,
 monitor='val_loss', mode='max'): quirk Q4, 'max' keeps the WORST
 validation epoch. ``BestTracker`` defaults to it; mode='min' keeps the
@@ -67,10 +71,21 @@ def to_host(obj):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    """The run directory's slots. ``writer``: this process writes (False
+    on every rank but 0 of a multi-process run, where ``save`` writes
+    nothing). Saves are snapshots as ``E3DIFF_SNAPSHOT_SAVES`` says, and
+    synchronous in a ``torch.distributed`` job of more than one rank (the
+    state a rank saves was gathered by collectives of the same step), as
+    the JAX package's ``_snapshot_applicable`` has it."""
+
+    def __init__(self, directory: str, *, writer: bool = True):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
-        self.snapshot_saves = snapshot_saves_enabled()
+        self.writer = writer
+        multi = (torch.distributed.is_available()
+                 and torch.distributed.is_initialized()
+                 and torch.distributed.get_world_size() > 1)
+        self.snapshot_saves = snapshot_saves_enabled() and not multi
         # one writer: the saves are written in the order they were made
         self._writer = ThreadPoolExecutor(max_workers=1,
                                           thread_name_prefix="ckpt-snapshot")
@@ -100,6 +115,8 @@ class CheckpointManager:
         """Write ``obj`` (its tensors as CPU tensors) to ``<name>.pt``: as
         a snapshot written in the background, or at once under
         ``E3DIFF_SNAPSHOT_SAVES=0``. Returns the path."""
+        if not self.writer:
+            return self.path(name)
         if not self.snapshot_saves:
             self._collect(block=True)
             self._write(name, to_host(obj))

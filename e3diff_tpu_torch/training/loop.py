@@ -6,10 +6,15 @@ slot, the resumable ``last`` slot and the final weights.
 On a CUDA device every train step is a replay of the trainer's step
 captured as a CUDA graph (Trainer.capture) at the first batch of each
 shape, as ``jax.jit`` compiles once per shape; a step that cannot be
-captured raises. On the CPU the steps run eagerly. The eval step runs
-eagerly on both. ``profile_dir`` profiles the train steps of one epoch
-(the second of the run, or its only one) and prints their digest
-(utils/profiling.py).
+captured raises. On the CPU, and on a gloo mesh (whose collectives stage
+through the host and cannot be captured), the steps run eagerly. The
+eval step runs eagerly on both. ``profile_dir`` profiles the train steps
+of one epoch (the second of the run, or its only one) and prints their
+digest (utils/profiling.py).
+
+On the trainer's mesh every rank runs the loop on its rows of each batch;
+the saves gather the whole state (``Trainer.full_state_dict``) and rank 0
+writes them, synchronously; a resume cuts the saved state to the mesh.
 """
 
 from __future__ import annotations
@@ -85,14 +90,18 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
     background thread ``prefetch`` batches ahead (0: in line).
     ``steps_per_sec`` leaves out the first step of the epoch."""
     device = torch.device(device)
+    mesh = trainer.mesh
+    if mesh is not None and mesh.rank != 0:
+        profile_dir = None   # one trace, rank 0's
     manager = best = None
     start_epoch = 0
     if ckpt_dir is not None:
-        manager = CheckpointManager(ckpt_dir)
+        manager = CheckpointManager(
+            ckpt_dir, writer=mesh is None or mesh.rank == 0)
         best = BestTracker(manager, mode=ckpt_mode)
         if resume and manager.exists("last"):
             last = manager.load("last")
-            trainer.load_state_dict(last["trainer"])
+            trainer.load_full_state_dict(last["trainer"])
             start_epoch = int(last["epoch"]) + 1
             if last["best"] is not None and math.isfinite(last["best"]):
                 best.best = float(last["best"])
@@ -104,14 +113,15 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
         return (to_device(b, device) for b in batches)
 
     captured = {}   # batch shapes -> CapturedStep
-    pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+    capture = device.type == "cuda" and (mesh is None or mesh.can_capture)
+    pool = torch.cuda.graph_pool_handle() if capture else None
     # the GEMMs' operations of the epoch's captured steps, their warm-up
     # steps included: a trace of replays shows none (utils/profiling.py)
     gemm_flops = 0.0
 
     def train_step(batch):
         nonlocal gemm_flops
-        if device.type != "cuda":
+        if not capture:
             return trainer.train_step(batch)
         key = tuple((k, tuple(v.shape)) for k, v in batch.items())
         if key not in captured:
@@ -176,7 +186,7 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
                 best.update(val_means, trainer.weights)
             if (epoch + 1) % max(ckpt_every, 1) == 0 \
                     or epoch == max_epochs - 1:
-                manager.save("last", {"trainer": trainer.state_dict(),
+                manager.save("last", {"trainer": trainer.full_state_dict(),
                                       "epoch": epoch, "best": best.best})
             record["ckpt_wait_seconds"] = time.perf_counter() - t_ckpt
 

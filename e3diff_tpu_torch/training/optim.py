@@ -18,6 +18,10 @@ get_linear_schedule_with_warmup stepped once per epoch, warmup =
 int(0.1 max_epochs) epochs, so with the presets every step of epoch 0 has
 learning rate 0. The optimizer is plain PyTorch: the JAX package leaves it
 to XLA, outside any Pallas kernel.
+
+On a mesh the clipping norm is the whole model's: the squares of the
+tp-sharded gradients are summed over ``tp_group``, the replicated ones
+counted once; clipping and AdamW then run on each rank's shard.
 """
 
 from __future__ import annotations
@@ -48,10 +52,19 @@ def linear_warmup_per_epoch(base_lr: float, max_epochs: int,
     return schedule
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of every element squared), f32, on the tensors' device."""
+def global_norm(tensors: Iterable[torch.Tensor], sharded=None,
+                mesh=None) -> torch.Tensor:
+    """sqrt(sum of every element squared), f32, on the tensors' device.
+    ``sharded`` (or None): device int64 indices of the tensors that are
+    this rank's tp shards of a larger one, whose squares are summed over
+    ``mesh.tp_group``, and of the replicated ones, counted once."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if sharded is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    split, whole = sharded
+    sq = torch.stack(norms) ** 2
+    part = mesh.all_reduce_tp_(sq.index_select(0, split).sum())
+    return torch.sqrt(sq.index_select(0, whole).sum() + part)
 
 
 def schedule_table(schedule: Callable[[int], float], steps: int,
@@ -83,13 +96,16 @@ class AdamW:
     every step of the run, which the step reads at ``count`` (a count past
     the run reads the last row, where the learning rate is 0).
     ``state_dict`` / ``load_state_dict`` carry the moments and the count
-    for a resume; loading copies into the same tensors."""
+    for a resume; loading copies into the same tensors. ``mesh`` and
+    ``sharding_rules`` (a mesh model's): the clipping norm sums the
+    sharded gradients' squares over tp."""
 
     def __init__(self, params: dict[str, nn.Parameter], *,
                  base_lr: float = 5e-5, weight_decay: float = 0.1,
                  max_epochs: int = 150, steps_per_epoch: int = 250,
                  grad_clip: float = 1.0, mu_dtype: str = "f32",
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 mesh=None, sharding_rules: dict | None = None):
         if mu_dtype not in ("f32", "bf16"):
             raise ValueError(f"mu_dtype must be f32 or bf16, got {mu_dtype!r}")
         self.names = list(params)
@@ -100,6 +116,14 @@ class AdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu_dtype = torch.bfloat16 if mu_dtype == "bf16" else None
         device = self.params[0].device
+        self.mesh, self.sharded = mesh, None
+        if mesh is not None and mesh.tp > 1:
+            split = [sharding_rules[n] != "replicated" for n in self.names]
+            if any(split):
+                self.sharded = tuple(
+                    torch.tensor([i for i, s in enumerate(split) if s == want],
+                                 dtype=torch.int64, device=device)
+                    for want in (True, False))
         self.count = torch.zeros((), dtype=torch.int64, device=device)
         self.table = torch.from_numpy(schedule_table(
             self.schedule, max_epochs * steps_per_epoch, steps_per_epoch,
@@ -115,7 +139,7 @@ class AdamW:
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """One update from ``grads`` (in ``self.names`` order)."""
-        norm = global_norm(grads)
+        norm = global_norm(grads, self.sharded, self.mesh)
         # clip_by_global_norm: (g / norm) * max_norm where norm >= max_norm
         clipped = torch._foreach_mul(torch._foreach_div(grads, norm),
                                      self.grad_clip)

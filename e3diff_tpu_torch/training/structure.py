@@ -16,7 +16,10 @@ import math
 
 import torch
 
-from e3diff_tpu_torch.diffusion.gaussian import GaussianAngleDiffusion
+from e3diff_tpu_torch.diffusion.gaussian import (
+    GaussianAngleDiffusion,
+    sample_wrapped_noise,
+)
 from e3diff_tpu_torch.diffusion.guidance import drop_conditioning
 from e3diff_tpu_torch.ops.angles import wrap_angle
 from e3diff_tpu_torch.training.trainer import Trainer
@@ -26,10 +29,12 @@ FEATURE_NAMES = ["phi", "psi", "omega", "dihedral_o",
 SMOOTH_L1_BETA = math.pi / 10
 
 
-def structure_loss_terms(pred_noise, known_noise, ligand_mask):
+def structure_loss_terms(pred_noise, known_noise, ligand_mask, count=None):
     """(8,) per-channel masked losses in FEATURE_NAMES order, computed in
     f32 whatever the model's compute dtype (the reference's boolean index
-    then mean, model.py:293-302)."""
+    then mean, model.py:293-302). ``count``: the denominator's mask count
+    (on a mesh the global one, so that the terms are this rank's share);
+    the mask's own sum when None."""
     pred = pred_noise.float()
     known = known_noise.float()
     mask = ligand_mask.float()
@@ -42,7 +47,7 @@ def structure_loss_terms(pred_noise, known_noise, ligand_mask):
                         0.5 * d_s ** 2 / SMOOTH_L1_BETA,
                         abs_d - 0.5 * SMOOTH_L1_BETA)
     per_elem = torch.cat([l1[..., :4], huber[..., 4:]], dim=-1)
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(mask.sum() if count is None else count, min=1.0)
     return (per_elem * mask[..., None]).sum(dim=(0, 1)) / denom
 
 
@@ -54,23 +59,37 @@ class StructureTrainer(Trainer):
     Injected draws (keywords of ``loss``, ``train_step``, ``eval_step``),
     each over the whole batch: ``t`` (B,) steps, ``noise`` (B, L, 8) eps,
     ``cond_drop`` (B,) bool; whatever is not injected is drawn from the
-    trainer's generator."""
+    trainer's generator, in this order: cond_drop, t, noise."""
 
     diffusion: GaussianAngleDiffusion
     INJECTED = ("t", "noise", "cond_drop")
 
     def _loss(self, batch):
+        x0 = batch["ligand_angles"]
+        n, gen, dev = x0.shape[0], self.generator, x0.device
         if self.cond_dropout and self.model.training:
-            batch = drop_conditioning(self.cond_dropout, batch,
-                                      generator=self.generator,
-                                      drop=batch.get("cond_drop"))
-        t, noise, x_t = self.diffusion.noise_batch(
-            batch["ligand_angles"], generator=self.generator,
-            t=batch.get("t"), noise=batch.get("noise"))
+            drop = batch.get("cond_drop")
+            if drop is None:
+                drop = self._draw(lambda m: torch.rand(
+                    m, generator=gen, device=dev) < self.cond_dropout, n)
+            batch = drop_conditioning(self.cond_dropout, batch, drop=drop)
+        t = batch.get("t")
+        if t is None:
+            t = self._draw(lambda m: torch.randint(
+                0, self.diffusion.timesteps, (m,), generator=gen,
+                device=dev), n)
+        noise = batch.get("noise")
+        if noise is None:
+            noise = self._draw(lambda m: sample_wrapped_noise(
+                (m,) + tuple(x0.shape[1:]), generator=gen, device=dev,
+                dtype=x0.dtype), n)
+        t, noise, x_t = self.diffusion.noise_batch(x0, t=t, noise=noise)
         pred = self.model(t, x_t, batch["ligand_attn_mask"],
                           batch["receptor_seq"], batch["receptor_angles"],
                           batch["receptor_attn_mask"])
-        terms = structure_loss_terms(pred, noise, batch["ligand_attn_mask"])
+        mask = batch["ligand_attn_mask"]
+        terms = structure_loss_terms(pred, noise, mask,
+                                     self._global(mask.float().sum()))
         return terms.mean(), {"terms": terms}
 
     def _metrics(self, prefix, loss, aux):

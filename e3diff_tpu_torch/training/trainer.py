@@ -1,7 +1,19 @@
 """What the two trainers share: the train step (accumulated gradients
 through the kernels, clipping and AdamW, EMA), eager or captured as one
 CUDA graph (the counterpart of the JAX package's jitted train_step), the
-eval step, the resumable state and the reference-layout weights."""
+eval step, the resumable state and the reference-layout weights.
+
+On a mesh (parallel/mesh.py; the model built for it) each rank trains on
+its dp rows of the global batch: every draw of the step (t, noise,
+conditioning dropout, Gumbel noise, the dropout masks) is made at the
+global batch's shape from the generator, which every rank seeds alike,
+and the rank keeps its rows; every masked mean is divided by the global
+count (its mask sum summed over dp, once per microbatch), so each rank's
+loss is its share of the global loss, and the gradients and the metrics
+are summed over dp. The eval step runs the whole batch on every rank.
+Saves gather the tp shards (``full_state_dict``); a resume cuts a full
+state to the mesh (``load_full_state_dict``).
+"""
 
 from __future__ import annotations
 
@@ -11,7 +23,12 @@ import torch
 from torch import nn
 
 from e3diff_tpu_torch.models.blocks import set_dropout_generator
-from e3diff_tpu_torch.sampling.graphs import CapturedCall, fill_static
+from e3diff_tpu_torch.parallel.mesh import gather_params, shard_params
+from e3diff_tpu_torch.sampling.graphs import (
+    CapturedCall,
+    check_capturable,
+    fill_static,
+)
 from e3diff_tpu_torch.training.checkpoint import map_tensors
 from e3diff_tpu_torch.training.optim import (
     AdamW,
@@ -32,21 +49,28 @@ class Trainer:
     * ``cond_dropout``: the probability of replacing an example's
       conditioning with the null conditioning during training;
     * ``generator``: the one source of the noising, dropout and
-      conditioning-dropout draws, on the model's device.
+      conditioning-dropout draws, on the model's device;
+    * ``mesh``: the mesh the model was built for (None: one device).
 
     Subclasses define ``_loss(batch) -> (loss, aux dict)``, the names of
-    the draws a caller may inject (``INJECTED``) and ``_metrics``."""
+    the draws a caller may inject (``INJECTED``; on a mesh, the rank's
+    rows of them) and ``_metrics``."""
 
     INJECTED: tuple[str, ...] = ()
 
     def __init__(self, model: nn.Module, diffusion, optimizer: AdamW, *,
                  ema_decay: float = 0.0, accum_steps: int = 1,
                  cond_dropout: float = 0.0,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
         names = [n for n, _ in model.named_parameters()]
         if names != optimizer.names:
             raise ValueError("the optimizer does not hold the model's "
                              "parameters")
+        if mesh is not getattr(model, "mesh", None):
+            raise ValueError("the model was built for another mesh")
+        if mesh is not None and optimizer.mesh is not mesh:
+            raise ValueError("the optimizer was built for another mesh")
+        self.mesh = mesh
         self.model, self.diffusion, self.optimizer = model, diffusion, optimizer
         self.ema_decay, self.accum_steps = ema_decay, accum_steps
         self.cond_dropout = cond_dropout
@@ -54,6 +78,26 @@ class Trainer:
         set_dropout_generator(model, generator)
         self.ema = ([p.detach().clone() for p in optimizer.params]
                     if ema_decay else None)
+
+    # -- the mesh: the rank's rows of each draw, global counts -----------
+    def _dp_split(self) -> bool:
+        """A train-mode pass on a mesh: the batch is the rank's dp rows."""
+        return self.mesh is not None and self.model.training
+
+    def _draw(self, fn, n: int):
+        """``fn(rows)``'s draw for the rank's ``n`` rows: drawn at the
+        global rows and cut on a mesh, at ``n`` otherwise."""
+        if not self._dp_split():
+            return fn(n)
+        r0, rows = self.mesh.rows(n)
+        return fn(rows)[r0:r0 + n]
+
+    def _global(self, counts: torch.Tensor) -> torch.Tensor:
+        """A local count (or stacked counts) summed over dp in a
+        train-mode pass on a mesh; as it is otherwise."""
+        if not self._dp_split():
+            return counts
+        return self.mesh.all_reduce_dp([counts])[0]
 
     def _with_draws(self, batch: dict, draws: dict) -> dict:
         unknown = set(draws) - set(self.INJECTED)
@@ -76,6 +120,11 @@ class Trainer:
         self.model.train()
         loss, aux, grads = accumulated_grads(
             self._loss, self.optimizer.params, batch, self.accum_steps)
+        if self.mesh is not None:
+            # each rank's loss is its share of the global one: sums
+            grads = self.mesh.all_reduce_dp(grads)
+            sums = self.mesh.all_reduce_dp([loss, *aux.values()])
+            loss, aux = sums[0], dict(zip(aux, sums[1:]))
         grad_norm = self.optimizer.step(grads)
         if self.ema is not None:
             ema_update(self.ema, self.optimizer.params, self.ema_decay)
@@ -87,7 +136,10 @@ class Trainer:
         """The train step captured as one CUDA graph for batches of
         ``batch``'s keys and shapes (and these injected draws' names): see
         CapturedStep. ``pool``: the graph's memory pool (one of its own by
-        default). A step that cannot be captured raises."""
+        default). A step that cannot be captured raises, as does one on a
+        gloo mesh on the card (gloo's collectives stage through the host:
+        run ``train_step`` eagerly there)."""
+        check_capturable(self.mesh, True)
         return CapturedStep(self, self._with_draws(batch, draws), pool=pool)
 
     @contextlib.contextmanager
@@ -110,17 +162,32 @@ class Trainer:
         return self._metrics("val", loss, aux)
 
     # -- checkpoints -----------------------------------------------------
+    def _full(self, tensors: dict) -> dict:
+        """A dict keyed by the model's state_dict keys, its tp shards
+        gathered (every tp rank must call it)."""
+        if self.mesh is None or self.mesh.tp == 1:
+            return tensors
+        return gather_params(tensors, self.mesh, self.model.sharding_rules)
+
+    def _shard(self, tensors: dict) -> dict:
+        if self.mesh is None or self.mesh.tp == 1:
+            return tensors
+        return shard_params(tensors, self.mesh,
+                            rules=self.model.sharding_rules)
+
     def weights(self) -> dict[str, torch.Tensor]:
-        """The model's reference-layout state_dict, f32 on the CPU."""
-        return {k: v.detach().float().cpu()
-                for k, v in self.model.state_dict().items()}
+        """The model's reference-layout state_dict, f32 on the CPU (the
+        whole model on a mesh: every rank must call it)."""
+        sd = {k: v.detach() for k, v in self.model.state_dict().items()}
+        return {k: v.float().cpu() for k, v in self._full(sd).items()}
 
     def ema_weights(self) -> dict[str, torch.Tensor] | None:
         """``weights()`` with the EMA parameters, or None without EMA."""
         if self.ema is None:
             return None
         out = self.weights()
-        for name, e in zip(self.optimizer.names, self.ema):
+        ema = self._full(dict(zip(self.optimizer.names, self.ema)))
+        for name, e in ema.items():
             out[name] = e.detach().float().cpu()
         return out
 
@@ -137,6 +204,28 @@ class Trainer:
             "generator": (None if self.generator is None
                           else self.generator.get_state()),
         }
+
+    def full_state_dict(self) -> dict:
+        """``state_dict()`` with the tp shards gathered: the one-device
+        state that a save writes (every rank must call it)."""
+        state = self.state_dict()
+        opt = state["optimizer"]
+        return {**state, "model": self._full(state["model"]),
+                "optimizer": {**opt, "mu": self._full(opt["mu"]),
+                              "nu": self._full(opt["nu"])},
+                "ema": None if state["ema"] is None
+                else self._full(state["ema"])}
+
+    def load_full_state_dict(self, state: dict) -> None:
+        """Load a one-device state (``full_state_dict``'s, whatever mesh
+        wrote it) cut to this rank's shard."""
+        opt = state["optimizer"]
+        self.load_state_dict({
+            **state, "model": self._shard(state["model"]),
+            "optimizer": {**opt, "mu": self._shard(opt["mu"]),
+                          "nu": self._shard(opt["nu"])},
+            "ema": None if state["ema"] is None
+            else self._shard(state["ema"])})
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:

@@ -34,18 +34,21 @@ def transformer_configs(cfg: ExperimentConfig, init_style: str
 
 
 def build_structure_model(cfg: ExperimentConfig, *, device,
-                          seed: int | None = None) -> StructureDenoiser:
+                          seed: int | None = None,
+                          mesh=None) -> StructureDenoiser:
     """The structure denoiser on ``device``: random weights drawn from
-    ``seed``, or uninitialised ones (None) for a checkpoint to fill."""
+    ``seed``, or uninitialised ones (None) for a checkpoint to fill; on
+    ``mesh``, the rank's tensor-parallel shard on its device."""
     return StructureDenoiser(*transformer_configs(cfg, "torch_default"),
-                             device=device, seed=seed)
+                             device=device, seed=seed, mesh=mesh)
 
 
 def build_sequence_model(cfg: ExperimentConfig, *, device,
-                         seed: int | None = None) -> SequenceDenoiser:
+                         seed: int | None = None,
+                         mesh=None) -> SequenceDenoiser:
     """The sequence denoiser on ``device``, as ``build_structure_model``."""
     return SequenceDenoiser(*transformer_configs(cfg, "xavier_all"),
-                            device=device, seed=seed)
+                            device=device, seed=seed, mesh=mesh)
 
 
 def build_structure_diffusion(cfg: ExperimentConfig, *, device

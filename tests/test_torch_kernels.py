@@ -575,6 +575,66 @@ def test_dropout_keep_plain_matches_python_philox(shape, rate):
     assert got.reshape(-1).tolist() == want
 
 
+# a mesh rank's block of the one-device bits: (row_offset, total_rows,
+# head_offset, total_heads) inside a (total_rows, total_heads, Lq, Lk) draw;
+# runs of Lq Lk divisible by 8 take the one-call-per-8-bits path, others
+# one call per element
+@pytest.mark.parametrize("shape,block", [
+    ((2, 3, 16, 8), (4, 8, 3, 6)), ((1, 2, 17, 5), (3, 4, 1, 4)),
+    ((3, 6, 8, 16), (0, 3, 6, 12)), ((2, 1, 1, 1), (1, 3, 2, 3))])
+def test_dropout_keep_block_is_the_full_draws_block(shape, block):
+    seed = torch.tensor([2 ** 32 + 0x1234, 0xFEDCBA98], dtype=torch.int64)
+    b, h, lq, lk = shape
+    r0, rows, h0, heads = block
+    whole = kernels.dropout_keep_plain(seed, (rows, heads, lq, lk), 0.25)
+    got = kernels.dropout_keep_plain(seed, shape, 0.25, block)
+    assert torch.equal(got, whole[r0:r0 + b, h0:h0 + h])
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (2, 3, 17, 5),
+                                   (4, 4, 16, 16)])
+def test_dropout_keep_default_block_keeps_every_bit(shape):
+    """The default block, (0, B, 0, H), is the draw as it always was."""
+    seed = torch.tensor([7, 11])
+    want = kernels.dropout_keep_plain(seed, shape, 0.1)
+    got = kernels.dropout_keep_plain(seed, shape, 0.1,
+                                     (0, shape[0], 0, shape[1]))
+    assert torch.equal(got, want)
+
+
+def test_dropout_block_is_checked():
+    seed = torch.tensor([7, 11])
+    for block in ((1, 2, 0, 4), (0, 2, 3, 4), (-1, 4, 0, 4)):
+        with pytest.raises(ValueError, match="does not hold"):
+            kernels.dropout_keep_plain(seed, (2, 2, 4, 4), 0.1, block)
+
+
+def test_attention_train_draws_its_block():
+    """A rank's training forward and backward with a dropout block: the
+    plain versions given the matching block of the full draw."""
+    q, k, v, mask, table = _inputs(seed=4, ragged=True)
+    q, k, v, mask, table = (torch.from_numpy(x) for x in (q, k, v, mask,
+                                                          table))
+    seed = torch.tensor([3, 9])
+    kw = dict(num_heads=H, max_pos=MAX_POS)
+    block = (B, 3 * B, H, 3 * H)   # rows B..2B-1, heads H..2H-1
+    keep = kernels.dropout_keep_plain(seed, (3 * B, 3 * H, LQ, LK), 0.25)[
+        B:2 * B, H:2 * H]
+    out, lse = kernels.fused_attention_train(q, k, v, mask, table, seed, 0.25,
+                                             dropout_block=block, **kw)
+    want, want_lse = kernels.attention_train_plain(q, k, v, mask, table,
+                                                   keep, 0.25, **kw)
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    got = kernels.attention_backward(dout, q, k, v, lse, mask, table, seed,
+                                     0.25, dropout_block=block, **kw)
+    grads = kernels.attention_backward_plain(dout, q, k, v, lse, mask, table,
+                                             keep, 0.25, **kw)
+    for g, w in zip(got, grads):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("rate", [0.1, 0.25])
 def test_dropout_keep_rate_within_five_sigma(rate):
     """At 2^20 elements the kept share is within 5 sigma of 1 - p."""

@@ -242,6 +242,8 @@ class ReplayLikeTrainer:
     """A trainer stand-in whose train_step rewrites and returns the same
     tensors every call, as a captured step's replay does."""
 
+    mesh = None
+
     def __init__(self, losses):
         self.losses = iter(losses)
         self.metrics = {"train_loss": torch.zeros(()),
