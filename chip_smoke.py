@@ -25,6 +25,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    exactly as often as the capture of one encode (13 + 29) and one
    reverse step (25 + 41) does, its warm-up calls included, and printing
    the seconds of the first call and of a second one (replays only);
+   then (6.2) the sampling CLI's DDPM-1000 trajectory kept, without and
+   with --trajectory_bf16 from one seed (the bf16 pickle is the f32 one
+   rounded to bf16, exactly), a captured DDIM-25 run with a bf16
+   trajectory buffer against the eager loop (bit for bit), and
+   sample_structure_batches over 3 DDPM-1000 batches (each batch's copy
+   to the host overlapping the next batch) against the serial loop it
+   replaced, in turns, the same arrays and the seconds of each;
 7. each kernel's device time beside its plain version, a one-call PyTorch
    yardstick and its bound, at each main-path shape;
 8. the design request at full width: the 61M ``SequenceDenoiser`` (its
@@ -61,9 +68,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (38 + 70 forward and 38 + 70 backward; 15 + 32 and 15 + 32), an eval
    step (forward kernels only), the median step time, samples/s and peak
    memory; two 3-step structure runs from one seed ending in the same
-   weights; both train CLIs for one epoch (each captures its train step:
-   the launches of the capture with its warm-up, then an eager eval
-   step), and DesignEngine serving a design batch from the two final.pt
+   weights; both train CLIs for one epoch (each captures its train step
+   and its eval step: the launches of the captures with their warm-ups),
+   and DesignEngine serving a design batch from the two final.pt
    files they wrote;
 10. serving at full width, int8_matmul: the captured samplers against
    the eager loop on the same draws (structure DDIM-25, DDPM-1000 and a
@@ -110,6 +117,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    digest printed, the trace written, the peak memory with the snapshot
    saves), 1 epoch and a resume for 1 more ending in the same final.pt,
    and 2 epochs under E3DIFF_SNAPSHOT_SAVES=0 writing the same files;
+   (g) remat: the structure trainer at its preset from one seed, 3 eager
+   steps and 3 replays of its captured step at remat none, layer and
+   dots, every run's losses, grad norms, weights, moments and
+   generator state equal to the eager none run's bit for bit, each remat
+   step launching the recomputed layers' forward kernels (36 training
+   attention forwards and 60 LayerNorms more a step) and no other; ms a
+   step and max_memory_allocated of each; one sequence step at layer
+   against none (12 and 18 more); (h) the eval step captured
+   (Trainer.capture_eval) for both trainers over 2 x 64 + 17 validation
+   complexes (the last batch zero-padded): a train step, two eval passes
+   and a train step, captured against eager, every metric, epoch mean
+   and the final state with the generator's bit for bit; eval ms a batch
+   eager and captured, and the number of eval graphs (one shape: one);
 13. multi-device on one card, the ranks spawned onto cuda:0 with seeded
    full-width weights: (a) dp=2 over gloo, 3 eager structure train steps
    at the preset (B=64, 32 a rank, length 128, bf16, dropout 0.1) against
@@ -136,8 +156,9 @@ record sum the main paths' runs: phase 6's DDPM-1000 int8 run (its
 capture included), phase 10's server (its warmup's captures and 40
 requests), phase 9's eager train steps and phase 12's captured ones
 (each capture with its warm-up steps; replays launch nothing from
-Python), and phase 13's ranks' train steps, tp samplers and engine;
-phase 11 checks its own launches and adds none.
+Python), phase 12 (g)'s remat runs and (h)'s eval runs, and phase 13's
+ranks' train steps, tp samplers and engine; phases 6.2 and 11 check
+their own launches and add none.
 
 Usage, from the root of a checkout:
     python3 chip_smoke.py              # what the checks above need
@@ -745,7 +766,10 @@ def main(argv=None) -> int:
           f"{torch.cuda.device_count()}, CUDAGraph.register_generator_state "
           f"{hasattr(torch.cuda.CUDAGraph, 'register_generator_state')} "
           f"(the samplers draw their noise before a graph runs, and need "
-          f"none)")
+          f"none), Generator.clone_state "
+          f"{hasattr(torch.Generator, 'clone_state')} (remat restores the "
+          f"trainer's generator with get_state / set_state, which a "
+          f"capture records)")
 
     # 2 ---------------------------------------------------------------
     phase("2. build the kernels (nvcc, sm_90a)")
@@ -927,7 +951,14 @@ def main(argv=None) -> int:
         check(all(r.ndim == 2 and r.shape[1] == 8
                   and in_angle_range(torch, r) for r in results),
               "cli samples malformed")
+    t0 = time.perf_counter()
+    traj_numbers = trajectory_phase(torch, kernels, cli_main, model8,
+                                    diffusion, batch, struct_capture)
+    traj_numbers["phase"] = time.perf_counter() - t0
+    print(f"  {card}")
+    print(f"  phase 6.2 took {traj_numbers['phase']:.1f} s")
     del model8
+    torch.cuda.empty_cache()
 
     # 7 ---------------------------------------------------------------
     phase("7. kernel timings (device ms per call, L2-warm, bf16)")
@@ -1087,6 +1118,23 @@ def main(argv=None) -> int:
         capture_timing["cli_peak_gib"] = train_cli_capture_phase(
             torch, kernels, Path(tmp)) / 2**30
     print(f"  {card}")
+    print(f"  phase 12 (a-f) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    phase("12 (g). remat: layer and dots against none, eager and "
+          "captured, bit for bit, with their launches, times and memory")
+    counts, remat_numbers = remat_phase(torch, kernels, gen, card)
+    for k, n in counts.items():
+        train_counts[k] += n
+    remat_numbers["phase"] = time.perf_counter() - t1
+    print(f"  phase 12 (g) took {remat_numbers['phase']:.1f} s")
+    t1 = time.perf_counter()
+    phase("12 (h). the eval step captured: against eager eval_step over a "
+          "zero-padded validation set, with train steps around it")
+    counts, eval_numbers = eval_capture_phase(torch, kernels, gen, card)
+    for k, n in counts.items():
+        train_counts[k] += n
+    eval_numbers["phase"] = time.perf_counter() - t1
+    print(f"  phase 12 (h) took {eval_numbers['phase']:.1f} s")
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     # 13 --------------------------------------------------------------
@@ -1104,7 +1152,8 @@ def main(argv=None) -> int:
     # the launches of the main paths' runs: the DDPM-1000 structure run
     # (its capture), the server (its warmup's captures and 40 requests),
     # the two trainers' eager train steps and their captured steps (each
-    # capture with its warm-up, and the replays), and phase 13's ranks'
+    # capture with its warm-up, and the replays), the remat and eval runs
+    # of phase 12 (g) and (h), and phase 13's ranks'
     # (their train steps, tp samplers and the mesh engine)
     for entry in record:
         entry["launches"] = (main_counts[entry["name"]]
@@ -1118,6 +1167,9 @@ def main(argv=None) -> int:
     print(f"train steps: {json.dumps(train_timing)}")
     print(f"files to designs, seconds: {json.dumps(flow_seconds)}")
     print(f"captured train steps: {json.dumps(capture_timing)}")
+    print(f"trajectory and host copies: {json.dumps(traj_numbers)}")
+    print(f"remat: {json.dumps(remat_numbers)}")
+    print(f"eval steps: {json.dumps(eval_numbers)}")
     print(f"multi-device: {json.dumps(par_numbers)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
@@ -2667,9 +2719,10 @@ def train_cli_phase(torch, kernels, run_root: Path):
         secs = time.perf_counter() - t0
         counts = launch_counts(kernels)
         # one batch: the step's capture (with its warm-up steps) and one
-        # replay, then an eager eval step
+        # replay, then the eval step's capture (with its warm-up steps)
+        # and one replay
         want = sum_counts(train_capture_launches(kernels, kind),
-                          with_zeros(kernels, PER_EVAL_STEP[kind]))
+                          eval_capture_launches(kernels, kind))
         print(f"  cli train_{kind}: {secs:.1f} s including the model "
               f"build and the checkpoints; history {hist}; launches "
               f"{counts}", flush=True)
@@ -2732,6 +2785,15 @@ def train_capture_launches(kernels, kind, accum: int = 1) -> dict[str, int]:
 
     return with_zeros(kernels, {k: (WARMUP_CALLS + 1) * accum * n
                                 for k, n in PER_TRAIN_STEP[kind].items()})
+
+
+def eval_capture_launches(kernels, kind) -> dict[str, int]:
+    """The launches of capturing one eval step: WARMUP_CALLS eager eval
+    steps and the step under capture."""
+    from e3diff_tpu_torch.sampling.graphs import WARMUP_CALLS
+
+    return with_zeros(kernels, {k: (WARMUP_CALLS + 1) * n
+                                for k, n in PER_EVAL_STEP[kind].items()})
 
 
 def trace_train_kernels(trace, steps: int) -> dict[str, float]:
@@ -2810,9 +2872,10 @@ def train_run(torch, kernels, build, batch, draws, n, *, capture: bool,
     the losses, grad norms and seconds of each step, the peak memory from
     the build on (a capture's included: its copy of the state and its
     warm-up steps) and the memory reserved after the steps, the final
-    state copied to the host, and for a capture its seconds, its launches
-    by name, its peak memory and the kernels' launches from the capture
-    to the last replay; with ``profile``, the digest of
+    state copied to the host and the generator's, and for a capture its
+    seconds, its launches by name, its peak memory and the kernels'
+    launches from the capture to the last replay; with ``profile``, the
+    digest of
     PROFILED_STEPS more steps and the training kernels a step ran by name
     in their trace."""
     trainer = build()
@@ -2841,6 +2904,7 @@ def train_run(torch, kernels, build, batch, draws, n, *, capture: bool,
     r["peak"] = torch.cuda.max_memory_allocated()
     r["reserved"] = torch.cuda.memory_reserved()
     r["state"] = [t.detach().cpu() for t in trainer_state(trainer)]
+    r["generator"] = trainer.generator.get_state()
     if profile is not None:
         r["digest"], trace = profiled_steps(
             torch, call, batch, profile, label,
@@ -3070,6 +3134,385 @@ def train_cli_capture_phase(torch, kernels, run_root: Path):
     check(runs["synchronous"] == runs["snapshot"],
           "synchronous saves wrote other files than snapshot saves")
     return peak
+
+
+# ---------------------------------------------------------------------------
+# phase 12 (g): remat; (h): the captured eval step
+# ---------------------------------------------------------------------------
+
+REMAT_STEPS = 3
+# a validation set whose last batch is zero-padded: 2 full batches of
+# TRAIN_B and one of EVAL_LAST valid rows
+EVAL_LAST = 17
+EVAL_REPS = 3               # passes over the validation batches timed
+
+
+def remat_extra(cfg, kind) -> dict[str, int]:
+    """The launches a remat step adds to PER_TRAIN_STEP: the backward runs
+    each stack layer's forward again, its attention cores through the
+    training forward kernel and its LayerNorms through the LayerNorm
+    kernel. The structure model has an encoder of num_hidden_layers
+    self-attention layers (1 core and 2 LayerNorms each) and a decoder of
+    as many with cross-attention (2 cores, 3 LayerNorms); the sequence
+    model that decoder alone (its SELayers are not stack layers)."""
+    n = cfg.num_hidden_layers
+    enc = n if kind == "structure" else 0
+    return {"fused_attention_train": enc + 2 * n,
+            "fused_layernorm": 2 * enc + 3 * n}
+
+
+def remat_phase(torch, kernels, gen, card) -> tuple[dict, dict]:
+    """Phase 12 (g): the structure trainer at its preset (B=64, length
+    128, bf16, dropout 0.1) from one seed, REMAT_STEPS eager steps and as
+    many replays of its captured step at remat none, layer and dots: every
+    run's losses, grad norms, weights, moments, count and generator state
+    equal the eager none run's bit for bit; each remat step's launches
+    against PER_TRAIN_STEP plus ``remat_extra``; ms a step and
+    max_memory_allocated of each. Then one sequence-trainer step at
+    layer against none, bit for bit. Returns the launches of these runs
+    and the numbers."""
+    import dataclasses
+
+    from e3diff_tpu_torch.sampling.graphs import WARMUP_CALLS
+    from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils.presets import (
+        sequence_train_config,
+        structure_train_config,
+    )
+
+    total = with_zeros(kernels, {})
+    numbers = {}
+    for kind, preset, modes, n in (
+            ("structure", structure_train_config, ("eager", "captured"),
+             REMAT_STEPS),
+            ("sequence", sequence_train_config, ("eager",), 1)):
+        cfg = preset(max_epochs=1)
+        batch, _ = train_batch(torch, cfg, gen, kind)
+        extra = remat_extra(cfg, kind)
+        print(f"  {kind}: a remat step launches {extra} more than "
+              f"{PER_TRAIN_STEP[kind]} ({cfg.num_hidden_layers} layers a "
+              f"stack)", flush=True)
+        ref = None
+        for remat in ("none", "layer", "dots") if kind == "structure" \
+                else ("none", "layer"):
+            c = dataclasses.replace(cfg, remat=remat)
+            step = {k: v + (extra.get(k, 0) if remat != "none" else 0)
+                    for k, v in PER_TRAIN_STEP[kind].items()}
+            for mode in modes:
+                kernels.reset_launch_counts()
+                r = train_run(torch, kernels, lambda: build_trainer(
+                    kind, c, "cuda", steps_per_epoch=10_000), batch, {}, n,
+                    capture=mode == "captured")
+                torch.cuda.empty_cache()
+                total = sum_counts(total, r["counts"])
+                if mode == "captured":
+                    check(r["launches"] == with_zeros(kernels, step),
+                          f"{kind} remat {remat}: the capture launched "
+                          f"{r['launches']}, not {step}")
+                    want = with_zeros(kernels, {
+                        k: (WARMUP_CALLS + 1) * v for k, v in step.items()})
+                else:
+                    want = with_zeros(kernels, {k: n * v
+                                                for k, v in step.items()})
+                check(r["counts"] == want, f"{kind} remat {remat} {mode}: "
+                      f"launches {r['counts']}, not {want}")
+                label = f"{kind} remat {remat} {mode}"
+                if ref is None:
+                    ref = r
+                else:
+                    differ = compare_runs(torch, f"{label} against none "
+                                          "eager", ref, r)
+                    if not torch.equal(r["generator"], ref["generator"]):
+                        differ.append("the generator's state")
+                    check(not differ, f"{label}: {differ}")
+                ms = statistics.median(r["secs"]) * 1e3
+                numbers[label] = {
+                    "ms_per_step": ms,
+                    "max_memory_allocated_gib": r["peak"] / 2**30}
+                print(f"  {label}: {ms:.2f} ms a step (median of {n}), "
+                      f"max_memory_allocated {r['peak'] / 2**30:.2f} GiB"
+                      + (f" (the capture alone "
+                         f"{r['capture_peak'] / 2**30:.2f} GiB)"
+                         if mode == "captured" else "")
+                      + f"; launches {r['counts']}", flush=True)
+                if r is not ref:
+                    del r
+    print(f"  {card}")
+    return total, numbers
+
+
+def eval_batches(torch, cfg):
+    """A validation set of 2 TRAIN_B + EVAL_LAST synthetic complexes as
+    the loop batches it: three batches of TRAIN_B rows, the last one
+    zero-padded (num_valid EVAL_LAST), on the card."""
+    from e3diff_tpu_torch.data import LigandBindingSiteData, synthetic_complexes
+    from e3diff_tpu_torch.data.prefetch import to_device
+
+    ds = LigandBindingSiteData(
+        synthetic_complexes(n=2 * TRAIN_B + EVAL_LAST, seed=12), None,
+        cfg.max_seq_len, cfg.pocket_ext, cfg.ligand_max_len)
+    raw = list(ds.batches(TRAIN_B))
+    check([int(b["num_valid"]) for b in raw] == [TRAIN_B, TRAIN_B,
+                                                  EVAL_LAST],
+          f"validation batches of {[int(b['num_valid']) for b in raw]}")
+    return [to_device(b, "cuda") for b in raw]
+
+
+def eval_sequence(torch, trainer, train, evaluate, batch, val):
+    """A train step, two passes of eval steps over ``val`` and a train
+    step, read to the host after each call (a replay rewrites its
+    metrics): the values, the epoch means of each pass through the loop's
+    MetricSums, and the trainer's final state with its generator."""
+    from e3diff_tpu_torch.training.loop import MetricSums
+
+    out = {"train": [], "eval": [], "means": []}
+    for phase_ in ("train", "eval", "eval", "train"):
+        if phase_ == "train":
+            m = train(batch)
+            out["train"].append({k: v.item() for k, v in m.items()})
+            continue
+        sums = MetricSums()
+        for b in val:
+            m = evaluate(b)
+            sums.add(m)
+            out["eval"].append({k: v.item() for k, v in m.items()})
+        out["means"].append(sums.means())
+    out["state"] = [t.detach().cpu() for t in trainer_state(trainer)]
+    out["state"].append(trainer.generator.get_state())
+    return out
+
+
+def eval_capture_phase(torch, kernels, gen, card) -> tuple[dict, dict]:
+    """Phase 12 (h): for both trainers at their presets, over a validation
+    set whose last batch is zero-padded: captured eval metrics against
+    eager eval_step's bit for bit, batch by batch and in the loop's epoch
+    means; a train step, two eval passes and a train step, captured
+    against eager, bit for bit (the second train step's loss checks the
+    generator's position after eval); eval ms a batch eager and captured,
+    and the number of eval graphs. Returns the launches of both runs (the
+    timing passes left out) and the numbers."""
+    from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils.presets import (
+        sequence_train_config,
+        structure_train_config,
+    )
+
+    total = with_zeros(kernels, {})
+    numbers = {}
+    for kind, preset in (("structure", structure_train_config),
+                         ("sequence", sequence_train_config)):
+        cfg = preset(max_epochs=1)
+        batch, _ = train_batch(torch, cfg, gen, kind)
+        val = eval_batches(torch, cfg)
+        runs = {}
+        for mode in ("eager", "captured"):
+            trainer = build_trainer(kind, cfg, "cuda",
+                                    steps_per_epoch=10_000)
+            kernels.reset_launch_counts()
+            if mode == "eager":
+                train, evaluate = trainer.train_step, trainer.eval_step
+                graphs = {}
+            else:
+                pool = torch.cuda.graph_pool_handle()
+                step = trainer.capture(batch, pool=pool)
+                graphs = {}
+                for b in val:   # one eval graph per batch shape
+                    key = tuple((k, tuple(v.shape)) for k, v in b.items())
+                    if key not in graphs:
+                        graphs[key] = trainer.capture_eval(b, pool=pool)
+                    check(graphs[key].launches == with_zeros(
+                        kernels, PER_EVAL_STEP[kind]),
+                        f"{kind}: the eval capture launched "
+                        f"{graphs[key].launches}")
+
+                def train(b):
+                    return step(b)
+
+                def evaluate(b):
+                    return graphs[tuple((k, tuple(v.shape))
+                                        for k, v in b.items())](b)
+            runs[mode] = eval_sequence(torch, trainer, train, evaluate,
+                                       batch, val)
+            counts = launch_counts(kernels)
+            total = sum_counts(total, counts)
+            if mode == "eager":   # 2 train steps, 2 passes of eval steps
+                want = {k: 2 * PER_TRAIN_STEP[kind].get(k, 0)
+                        + 2 * len(val) * PER_EVAL_STEP[kind].get(k, 0)
+                        for k in counts}
+            else:   # the captures with their warm-ups; replays launch none
+                want = sum_counts(train_capture_launches(kernels, kind),
+                                  *(eval_capture_launches(kernels, kind)
+                                    for _ in graphs))
+            check(counts == want, f"{kind} eval {mode}: launches {counts}, "
+                  f"not {want}")
+            # eval ms a batch: EVAL_REPS passes over the batches, each
+            # ended by a synchronize
+            secs = []
+            for _ in range(EVAL_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in val:
+                    evaluate(b)
+                torch.cuda.synchronize()
+                secs.append((time.perf_counter() - t0) / len(val))
+            ms = statistics.median(secs) * 1e3
+            numbers[f"{kind} eval {mode}"] = {
+                "ms_per_batch": ms, "graphs": len(graphs)}
+            print(f"  {kind} eval {mode}: {ms:.2f} ms a batch of {TRAIN_B} "
+                  f"(median of {EVAL_REPS} passes over {len(val)} "
+                  f"batches), {len(graphs)} eval graphs; launches {counts}",
+                  flush=True)
+            if mode == "captured":
+                step.close()
+                for g in graphs.values():
+                    g.close()
+            del trainer
+            torch.cuda.empty_cache()
+        e, c = runs["eager"], runs["captured"]
+        for part in ("train", "eval", "means"):
+            check(e[part] == c[part], f"{kind}: captured {part} metrics "
+                  f"{c[part]} != eager {e[part]}")
+        bad = [i for i, (x, y) in enumerate(zip(e["state"], c["state"]))
+               if not torch.equal(x, y)]
+        check(not bad, f"{kind}: {len(bad)} state tensors differ after "
+              "train, eval, eval, train (the generator's is the last)")
+        print(f"  {kind}: train step, 2 eval passes over {len(val)} batches "
+              f"(the last {EVAL_LAST} rows and padding), train step: "
+              f"captured equal to eager bit for bit (val_loss means "
+              f"{[round(m['val_loss'], 5) for m in c['means']]}, second "
+              f"train loss {c['train'][1]['train_loss']:.6f})", flush=True)
+    print(f"  {card}")
+    return total, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 6.2: --trajectory_bf16 and the overlapped host copies
+# ---------------------------------------------------------------------------
+
+OVERLAP_BATCHES = 3
+
+
+def serial_batches(torch, run, batches, seed: int) -> list:
+    """sampling/structure.py::sample_structure_batches as it was before its
+    host copies overlapped the next batch: each batch's trajectory copied
+    to the host before the next batch is sampled."""
+    from e3diff_tpu_torch.data.dataset import strip_meta
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    results = []
+    for batch in batches:
+        tbatch = {k: torch.as_tensor(np.asarray(v), device="cuda")
+                  for k, v in strip_meta(batch).items()}
+        _, traj = run(tbatch, gen)
+        lengths = np.asarray(batch["ligand_attn_mask"]).sum(1).astype(int)
+        traj = traj.float().cpu().numpy()
+        results.extend(traj[:, i, :lengths[i], :]
+                       for i in range(int(batch["num_valid"])))
+    return results
+
+
+def trajectory_phase(torch, kernels, cli_main, model, diffusion, batch,
+                     struct_capture) -> dict:
+    """Phase 6.2: the sample_structure CLI (DDPM-1000, captured,
+    int8_matmul, B=32, ligand 16, the trajectory kept) from one seed
+    without and with --trajectory_bf16: the bf16 pickle is the f32 one
+    rounded to bf16, exactly; a captured DDIM-25 run with a bf16
+    trajectory buffer against the eager loop on the same draws, bit for
+    bit; then DDPM-1000 over OVERLAP_BATCHES batches of B through
+    sample_structure_batches (batch n's host copy overlapping batch
+    n+1) against the serial loop it replaced, in turns (serial,
+    overlapped, overlapped, serial), the same arrays, their seconds.
+    Returns the seconds."""
+    import pickle
+
+    from e3diff_tpu_torch.data import LigandBindingSiteData, synthetic_complexes
+    from e3diff_tpu_torch.sampling import (
+        make_structure_sampler,
+        sample_structure_batches,
+    )
+
+    numbers = {}
+    pickles = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("f32", []), ("bf16", ["--trajectory_bf16"])):
+            out = Path(tmp) / f"{name}.pkl"
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli_main(["--synthetic", "--params_dtype", "int8_matmul",
+                      "--batch_size", str(B), "--max_seq_len", str(MAX_POS),
+                      "--ligand_max_len", str(L_LIG), "--output", str(out),
+                      *extra])
+            numbers[f"cli ddpm-{T} trajectory {name} s"] = (
+                time.perf_counter() - t0)
+            counts = launch_counts(kernels)
+            check(counts == struct_capture,
+                  f"cli trajectory {name}: launches {counts}")
+            with open(out, "rb") as f:
+                pickles[name] = pickle.load(f)
+    f32, bf16 = pickles["f32"], pickles["bf16"]
+    check(len(f32) == len(bf16) > 0 and all(
+        a.dtype == b.dtype == np.float32 and a.shape == b.shape
+        and a.shape[0] == T for a, b in zip(f32, bf16)),
+        "cli trajectory pickles: layouts differ")
+    check(all(np.array_equal(
+        b, torch.from_numpy(a).bfloat16().float().numpy())
+        for a, b in zip(f32, bf16)),
+        "the --trajectory_bf16 pickle is not the f32 one rounded to bf16")
+    print(f"  cli ddpm-{T} int8_matmul, trajectory f32 and bf16: "
+          f"{len(bf16)} samples of {bf16[0].shape}, f32 "
+          f"{numbers[f'cli ddpm-{T} trajectory f32 s']:.2f} s, bf16 "
+          f"{numbers[f'cli ddpm-{T} trajectory bf16 s']:.2f} s (model "
+          f"build and capture included); the bf16 pickle is the f32 one "
+          f"rounded to bf16, exactly", flush=True)
+
+    got = {}
+    for eager in (False, True):
+        run = make_structure_sampler(
+            model, diffusion, sampler="ddim", ddim_steps=DDIM_STEPS,
+            return_trajectory=True, trajectory_dtype=torch.bfloat16,
+            eager=eager)
+        got[eager] = run(batch, generator=torch.Generator(
+            device="cuda").manual_seed(4))
+    (fc, tc), (fe, te) = got[False], got[True]
+    check(tc.dtype == te.dtype == torch.bfloat16
+          and torch.equal(tc, te) and torch.equal(fc, fe),
+          "ddim with a bf16 trajectory: captured differs from eager")
+    print(f"  ddim-{DDIM_STEPS} with a bf16 trajectory buffer "
+          f"{tuple(tc.shape)}: captured equal to the eager loop bit for "
+          "bit", flush=True)
+    del got, run
+
+    ds = LigandBindingSiteData(
+        synthetic_complexes(n=OVERLAP_BATCHES * B, seed=13), None, MAX_POS,
+        0, L_LIG)
+    batches = list(ds.batches(B))
+    check(len(batches) == OVERLAP_BATCHES, f"{len(batches)} batches")
+    secs, results = {"serial": [], "overlapped": []}, {}
+    for how in ("serial", "overlapped", "overlapped", "serial"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "serial":
+            results[how] = serial_batches(
+                torch, make_structure_sampler(model, diffusion), batches, 5)
+        else:
+            results[how] = sample_structure_batches(
+                model, diffusion, batches, device="cuda", seed=5,
+                first_batch_only=False)
+        secs[how].append(time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    check(len(results["serial"]) == len(results["overlapped"]) > 0 and all(
+        np.array_equal(a, b) for a, b in zip(results["serial"],
+                                             results["overlapped"])),
+        "sample_structure_batches differs from the serial loop")
+    numbers["ddpm batches serial s"] = secs["serial"]
+    numbers["ddpm batches overlapped s"] = secs["overlapped"]
+    print(f"  ddpm-{T} int8_matmul over {OVERLAP_BATCHES} batches of {B} "
+          f"with the f32 trajectory, capture included: serial host copies "
+          f"{[round(x, 3) for x in secs['serial']]} s, overlapped "
+          f"{[round(x, 3) for x in secs['overlapped']]} s (in turns: "
+          "serial, overlapped, overlapped, serial); the same arrays",
+          flush=True)
+    return numbers
 
 
 # ---------------------------------------------------------------------------

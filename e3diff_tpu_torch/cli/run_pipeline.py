@@ -24,6 +24,7 @@ from e3diff_tpu_torch.cli.sample_sequence import (
     load_test_data,
     sampling_config,
 )
+from e3diff_tpu_torch.utils.presets import structure_sample_config
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sequence_timesteps", type=int, default=50)
     p.add_argument("--sequence_layers", type=int, default=6)
     # the reference's structure sampling config (sample.py:20-41)
-    add_common_flags(p, max_seq_len=64, timesteps=1000, num_hidden_layers=12)
+    add_common_flags(p, structure_sample_config())
     return p
 
 

@@ -18,31 +18,29 @@ import pickle
 import numpy as np
 
 from e3diff_tpu_torch.utils.params_io import PARAMS_DTYPES
+from e3diff_tpu_torch.utils.presets import (
+    ExperimentConfig,
+    add_config_flags,
+    adopt_ckpt_config,
+    config_from_args,
+    sequence_sample_config,
+)
 
 
-def add_common_flags(p: argparse.ArgumentParser, *, max_seq_len: int,
-                    timesteps: int, num_hidden_layers: int) -> None:
-    """The flags the sampling CLIs take: data, model widths, storage,
-    device and seed. A checkpoint's config.json sidecar overrides the
-    data, width and diffusion flags that are not on the command line
+def add_common_flags(p: argparse.ArgumentParser,
+                     defaults: ExperimentConfig) -> None:
+    """The flags the sampling CLIs take: one per ExperimentConfig field
+    (``add_config_flags``, defaulting to the CLI's sampling preset), as
+    the JAX package's sampling scripts take them, so that their command
+    lines run here unchanged (the fields that do not bear on sampling, the
+    training ones, are parsed and have no effect, as in JAX); then
+    storage, device and data. A checkpoint's config.json sidecar overrides
+    the data, width and diffusion flags that are not on the command line
     (``sampling_config``)."""
-    p.add_argument("--batch_size", type=int, default=64)
-    p.add_argument("--max_seq_len", type=int, default=max_seq_len)
-    p.add_argument("--ligand_max_len", type=int, default=None)
-    p.add_argument("--pocket_ext", type=int, default=0)
-    p.add_argument("--timesteps", type=int, default=timesteps)
-    p.add_argument("--hidden_size", type=int, default=768)
-    p.add_argument("--num_heads", type=int, default=12)
-    p.add_argument("--num_hidden_layers", type=int, default=num_hidden_layers)
-    p.add_argument("--intermediate_size", type=int, default=1024)
-    p.add_argument("--position_embedding_type", default="relative_key",
-                   choices=["relative_key", "absolute"])
-    p.add_argument("--bf16", type=int, choices=[0, 1], default=1,
-                   help="bf16 compute (1) or f32 (0)")
+    add_config_flags(p, defaults)
     p.add_argument("--params_dtype", default="f32", choices=PARAMS_DTYPES,
                    help="weight storage (utils/params_io.py)")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--synthetic", action="store_true",
                    help="use 32 synthetic complexes")
     p.add_argument("--data_file", default=None,
@@ -70,18 +68,8 @@ def sampling_config(args, parser, ckpt_path, argv):
     """The flags' ExperimentConfig, with the fields of ``ckpt_path``'s
     config.json sidecar adopted where their flag is not in ``argv``
     (``adopt_ckpt_config``, as the JAX package's sampling scripts do)."""
-    from e3diff_tpu_torch.utils.presets import (
-        ExperimentConfig,
-        adopt_ckpt_config,
-    )
-
-    fields = ("pocket_ext", "max_seq_len", "ligand_max_len", "timesteps",
-              "num_heads", "hidden_size", "num_hidden_layers",
-              "intermediate_size", "position_embedding_type", "batch_size",
-              "seed")
-    cfg = ExperimentConfig(**{k: getattr(args, k) for k in fields},
-                           bf16=bool(args.bf16))
-    return adopt_ckpt_config(cfg, parser, ckpt_path, argv=argv)[0]
+    return adopt_ckpt_config(config_from_args(args), parser, ckpt_path,
+                             argv=argv)[0]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -101,7 +89,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--guidance_scale", type=float, default=1.0,
                    help="classifier-free guidance on the logits (1 = off)")
     # the reference's sampling config (sequence_model/sample.py:28-50)
-    add_common_flags(p, max_seq_len=64, timesteps=50, num_hidden_layers=6)
+    add_common_flags(p, sequence_sample_config())
     return p
 
 

@@ -20,6 +20,7 @@ from e3diff_tpu_torch.cli.sample_sequence import (
     load_test_data,
     sampling_config,
 )
+from e3diff_tpu_torch.utils.presets import structure_sample_config
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,8 +41,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--all_batches", action="store_true",
                    help="disable the reference's first-batch-only quirk (Q5)")
     p.add_argument("--no_trajectory", action="store_true")
+    p.add_argument("--trajectory_bf16", action="store_true",
+                   help="store the trajectory in bfloat16 on the card, "
+                        "halving its buffer and its copy to the host; the "
+                        "pickle holds those values as f32")
     # the reference's sampling config (structure_model/sample.py:20-41)
-    add_common_flags(p, max_seq_len=64, timesteps=1000, num_hidden_layers=12)
+    add_common_flags(p, structure_sample_config())
     return p
 
 
@@ -50,6 +55,8 @@ def main(argv=None) -> list:
     args = parser.parse_args(argv)
     if not args.synthetic and not args.data_file:
         raise SystemExit("--data_file is required unless --synthetic")
+
+    import torch
 
     from e3diff_tpu_torch.sampling import sample_structure_batches
     from e3diff_tpu_torch.utils.builders import (
@@ -75,7 +82,9 @@ def main(argv=None) -> list:
     results = sample_structure_batches(
         model, diffusion, test_ds.batches(cfg.batch_size), device=device,
         seed=cfg.seed, step=args.step, first_batch_only=not args.all_batches,
-        return_trajectory=not args.no_trajectory, sampler=args.sampler,
+        return_trajectory=not args.no_trajectory,
+        trajectory_dtype=torch.bfloat16 if args.trajectory_bf16 else None,
+        sampler=args.sampler,
         ddim_steps=args.ddim_steps, ddim_eta=args.ddim_eta,
         guidance_scale=args.guidance_scale)
 

@@ -161,13 +161,18 @@ class GaussianAngleDiffusion:
             x = self.p_step(st.x, eps_hat, t_vec, z)
         st.x.copy_(x)
         if st.traj is not None:
-            st.traj.index_copy_(0, st.i, x[None])
+            st.traj.index_copy_(0, st.i, x[None].to(st.traj.dtype))
         st.i += 1
 
     def reverse_state(self, x_init, z, ts, t_prev,
-                      return_trajectory: bool) -> ReverseState:
+                      return_trajectory: bool,
+                      trajectory_dtype: torch.dtype | None = None
+                      ) -> ReverseState:
         """A ReverseState on x_init's device holding a copy of x_init, the
-        noise and the ladder, at step 0."""
+        noise and the ladder, at step 0. ``trajectory_dtype`` (bf16, say):
+        the stored trajectory's type, x's when None; the carried x keeps
+        x_init's (the JAX package's ``trajectory_dtype``,
+        e3diff_tpu/diffusion/gaussian.py:106-129)."""
         dev = x_init.device
 
         def table(v):
@@ -178,7 +183,8 @@ class GaussianAngleDiffusion:
             i=torch.zeros(1, dtype=torch.long, device=dev), t=table(ts),
             t_prev=table(t_prev),
             traj=(torch.empty((len(ts),) + tuple(x_init.shape),
-                              dtype=x_init.dtype, device=dev)
+                              dtype=trajectory_dtype or x_init.dtype,
+                              device=dev)
                   if return_trajectory else None))
 
     def draw_noise(self, shape, n_steps: int, *, generator, device,
@@ -192,34 +198,39 @@ class GaussianAngleDiffusion:
         return x_init, z
 
     def _run(self, denoise_fn, x_init, ts, t_prev, generator, noise,
-             return_trajectory, ddim, eta=1.0):
+             return_trajectory, trajectory_dtype, ddim, eta=1.0):
         if noise is None:
             noise = torch.randn((len(ts),) + tuple(x_init.shape),
                                 generator=generator, device=x_init.device,
                                 dtype=x_init.dtype)
-        st = self.reverse_state(x_init, noise, ts, t_prev, return_trajectory)
+        st = self.reverse_state(x_init, noise, ts, t_prev, return_trajectory,
+                                trajectory_dtype)
         for _ in range(len(ts)):
             self.reverse_step(denoise_fn, st, ddim=ddim, eta=eta)
         return st.x, st.traj
 
     def sample_loop(self, denoise_fn: Callable, x_init, *,
                     generator: torch.Generator | None = None, noise=None,
-                    step: int = 1, return_trajectory: bool = True):
+                    step: int = 1, return_trajectory: bool = True,
+                    trajectory_dtype: torch.dtype | None = None):
         """Ancestral sampling over reversed(range(0, T, step)).
 
         denoise_fn: (t_vec, x_t) -> eps_hat. noise: optional (n, B, L, F)
         per-step z's in place of draws from ``generator`` (all n drawn
         before the first step). Returns the final sample and, if asked,
-        the (n, B, L, F) trajectory (index 0 is t = T-1)."""
+        the (n, B, L, F) trajectory (index 0 is t = T-1), stored in
+        ``trajectory_dtype`` (x's type when None)."""
         ts, t_prev = self.ladder("ddpm", step=step)
         return self._run(denoise_fn, x_init, ts, t_prev, generator, noise,
-                         return_trajectory, ddim=False)
+                         return_trajectory, trajectory_dtype, ddim=False)
 
     def sample_loop_ddim(self, denoise_fn: Callable, x_init, *,
                          generator: torch.Generator | None = None,
                          noise=None, n_steps: int = 50, eta: float = 1.0,
-                         return_trajectory: bool = False):
+                         return_trajectory: bool = False,
+                         trajectory_dtype: torch.dtype | None = None):
         """DDIM over ``ddim_timesteps(T, n_steps)`` (n_steps forwards)."""
         ts, t_prev = self.ladder("ddim", n_steps=n_steps)
         return self._run(denoise_fn, x_init, ts, t_prev, generator, noise,
-                         return_trajectory, ddim=True, eta=eta)
+                         return_trajectory, trajectory_dtype, ddim=True,
+                         eta=eta)

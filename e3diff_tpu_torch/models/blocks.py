@@ -41,11 +41,18 @@ mesh step drops what the one-process step drops.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from e3diff_tpu_torch.models.config import TransformerConfig
 from e3diff_tpu_torch.ops import kernels
@@ -357,11 +364,107 @@ class TransformerLayer(nn.Module):
             self.dropout(self.output["dense"](y)), residual=x)
 
 
+# the GEMMs whose outputs ``remat="dots"`` saves (F.linear dispatches to
+# mm / addmm, the CPU plain attention's einsums to bmm)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+REMAT_POLICIES = ("none", "layer", "dots")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _layer_generators(layer: nn.Module) -> list[torch.Generator]:
+    """The generators that ``layer``'s dropout sites draw from: the ones
+    ``set_dropout_generator`` handed them, or the default generator of the
+    layer's device where a site has none."""
+    device = next(layer.parameters()).device
+    default = (torch.cuda.default_generators[
+        device.index if device.index is not None
+        else torch.cuda.current_device()]
+        if device.type == "cuda" else torch.default_generator)
+    gens = []
+    for m in layer.modules():
+        if isinstance(m, (Dropout, MultiHeadAttention)):
+            g = default if m.generator is None else m.generator
+            if all(g is not h for h in gens):
+                gens.append(g)
+    return gens
+
+
+def _remat_contexts(layer: nn.Module, policy: str):
+    """The (forward, recompute) contexts of one checkpointed layer call.
+    The forward's saves the state of every generator the layer draws from;
+    the recompute's sets each back to it, so that the recomputed layer
+    draws the dropout uniforms and attention seeds its forward drew, and
+    then returns each generator to where the backward found it, so that
+    the rest of the step draws what it draws without remat.
+    torch.utils.checkpoint's own ``preserve_rng_state`` covers only the
+    default generators, and the trainer's is not one of them. On the card
+    ``get_state`` / ``set_state`` of a CUDA generator registered with a
+    CUDA graph being captured read and set its position inside the graph
+    (``clone_state`` cannot run during a capture). ``dots`` adds
+    torch's selective-checkpoint contexts, which keep the GEMM outputs."""
+    gens = _layer_generators(layer)
+    saved: list[torch.Tensor] = []
+
+    @contextlib.contextmanager
+    def forward():
+        saved[:] = [g.get_state() for g in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, saved):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    if policy == "layer":
+        return forward(), recompute()
+    sac_forward, sac_recompute = create_selective_checkpoint_contexts(
+        _save_dots)
+    return (_both(forward(), sac_forward), _both(recompute(), sac_recompute))
+
+
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
+
+
 class TransformerStack(nn.Module):
-    """BertEncoder: ``layer.{i}``."""
+    """BertEncoder: ``layer.{i}``.
+
+    With ``cfg.remat`` other than "none", each layer of a training
+    forward (train mode, grad enabled) is checkpointed, as the JAX
+    package wraps it in ``nn.remat`` (e3diff_tpu/models/blocks.py:267-337):
+    the backward runs the layer's forward again (its attention and
+    LayerNorm kernels launched a second time) with the dropout draws its
+    first forward made (``_remat_contexts``). "layer" keeps the layer's
+    inputs alone; "dots" keeps the GEMM outputs too, through a
+    selective-checkpoint policy on aten mm / addmm / bmm. The port's
+    attention and LayerNorm kernels launch through ctypes inside
+    autograd Functions, where the dispatcher sees only their output
+    allocations, so "dots" recomputes them; the JAX package's shipped
+    attention is XLA einsums, whose products ``checkpoint_dots`` keeps.
+    The numbers are the same either way. Samplers, eval and serving run
+    without grad, where remat changes nothing. On a mesh, a recomputed
+    tp layer issues its forward all-reduces again, as Megatron's
+    recompute does."""
 
     def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
+        if cfg.remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {cfg.remat!r}: one of "
+                             f"{REMAT_POLICIES}")
+        self.remat = cfg.remat
         self.layer = nn.ModuleList(TransformerLayer(cfg, device, mesh)
                                    for _ in range(cfg.num_layers))
 
@@ -374,9 +477,18 @@ class TransformerStack(nn.Module):
 
     def forward(self, x, mask_add, enc_out=None, enc_mask_add=None,
                 cross_kv=None):
+        remat = (self.remat if self.training and torch.is_grad_enabled()
+                 else "none")
         for i, layer in enumerate(self.layer):
-            x = layer(x, mask_add, enc_out, enc_mask_add,
-                      None if cross_kv is None else cross_kv[i])
+            kv = None if cross_kv is None else cross_kv[i]
+            if remat == "none":
+                x = layer(x, mask_add, enc_out, enc_mask_add, kv)
+            else:
+                x = checkpoint(
+                    layer, x, mask_add, enc_out, enc_mask_add, kv,
+                    use_reentrant=False, preserve_rng_state=False,
+                    context_fn=functools.partial(_remat_contexts, layer,
+                                                 remat))
         return x
 
 

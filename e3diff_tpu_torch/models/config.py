@@ -1,7 +1,9 @@
 """Typed transformer configuration (counterpart of
-e3diff_tpu/models/config.py, without the XLA layout knobs remat,
-scan_layers and self_attention_impl, which do not change the numbers, and
-without param_dtype: parameters are f32)."""
+e3diff_tpu/models/config.py, without the XLA layout knobs scan_layers and
+self_attention_impl, which do not change the numbers, and without
+param_dtype: parameters are f32). ``remat`` is kept: it trades a layer's
+saved activations for a second forward in the backward
+(models/blocks.py::TransformerStack)."""
 
 from __future__ import annotations
 
@@ -37,6 +39,10 @@ class TransformerConfig:
     # initialize_weights, sequence_model/model.py:183-198)
     init_style: str = "torch_default"
     dtype: torch.dtype = torch.float32  # activation / compute dtype
+    # activation checkpointing of each stack layer in a training forward:
+    # "none", "layer" (save the layer's inputs, recompute the rest) or
+    # "dots" (save the GEMM outputs too); the numbers are unchanged
+    remat: str = "none"
 
     @property
     def head_dim(self) -> int:

@@ -76,7 +76,8 @@ class StructureProgram:
 
     def __init__(self, model, diffusion: GaussianAngleDiffusion,
                  batch: dict, *, ts, t_prev, ddim: bool, eta: float,
-                 guided: bool, return_trajectory: bool, pool):
+                 guided: bool, return_trajectory: bool, trajectory_dtype,
+                 pool):
         dev = next(model.parameters()).device
         self.inputs = {k: torch.zeros(batch[k].shape, dtype=batch[k].dtype,
                                       device=dev) for k in BATCH_KEYS}
@@ -85,7 +86,7 @@ class StructureProgram:
                       else None)
         self.state = diffusion.reverse_state(
             lig, torch.zeros((len(ts),) + tuple(lig.shape)), ts, t_prev,
-            return_trajectory)
+            return_trajectory, trajectory_dtype)
         self.encode = CapturedCall(
             lambda: make_denoise_fn(model, self.inputs, guided=guided,
                                     scale=self.scale), pool=pool)
@@ -122,6 +123,7 @@ class StructureProgram:
 
 def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
                            step: int = 1, return_trajectory: bool = True,
+                           trajectory_dtype: torch.dtype | None = None,
                            sampler: str = "ddpm", ddim_steps: int = 50,
                            ddim_eta: float = 1.0, guidance_scale=1.0,
                            guided: bool | None = None,
@@ -138,6 +140,9 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
     "z": (n_steps, B, L, F)} to inject the draws instead. On a mesh model
     the batch and injected draws are the rank's dp rows, and the
     generator's draws are made at the global batch's shape and cut.
+
+    ``trajectory_dtype`` (bf16, say) is the type the trajectory is stored
+    in, the sample's when None; the carried sample keeps its own.
 
     sampler "ddpm" is the reference's ancestral loop (T forwards, or T/step
     with the lossy stride); "ddim" runs ddim_steps forwards. A guidance
@@ -162,8 +167,8 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
     check_capturable(mesh, graphs)
     if graphs and cache is None:
         cache = GraphCache()
-    flags = ("structure", step, return_trajectory, sampler, ddim_steps,
-             float(ddim_eta), guided)
+    flags = ("structure", step, return_trajectory, str(trajectory_dtype),
+             sampler, ddim_steps, float(ddim_eta), guided)
 
     def program(batch) -> StructureProgram:
         key = (id(model), id(diffusion), *flags,
@@ -174,7 +179,8 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
             prog = StructureProgram(
                 model, diffusion, batch, ts=ts, t_prev=t_prev,
                 ddim=sampler == "ddim", eta=ddim_eta, guided=guided,
-                return_trajectory=return_trajectory, pool=cache.pool())
+                return_trajectory=return_trajectory,
+                trajectory_dtype=trajectory_dtype, pool=cache.pool())
             cache.put(key, prog, model, diffusion)
         return prog
 
@@ -196,7 +202,8 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
             return program(batch).run(batch, x_init, z, w)
         tbatch = {k: batch[k].to(device) for k in BATCH_KEYS}
         denoise_fn = make_denoise_fn(model, tbatch, guided=guided, scale=w)
-        kw = dict(noise=z, return_trajectory=return_trajectory)
+        kw = dict(noise=z, return_trajectory=return_trajectory,
+                  trajectory_dtype=trajectory_dtype)
         if sampler == "ddim":
             return diffusion.sample_loop_ddim(
                 denoise_fn, x_init.to(device), n_steps=ddim_steps,
@@ -206,6 +213,22 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
 
     run.program = program
     return run
+
+
+def _to_host(t, stream):
+    """``t`` on its way to the host: a copy into page-locked memory queued
+    on ``stream`` after the work queued so far, and the event that marks
+    its end; a tensor on the CPU as it is, with no event."""
+    if t.device.type != "cuda":
+        return t, None
+    stream.wait_stream(torch.cuda.current_stream(t.device))
+    with torch.cuda.stream(stream):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    t.record_stream(stream)   # not reused before the copy has read it
+    return host, done
 
 
 def sample_structure_batches(
@@ -218,6 +241,7 @@ def sample_structure_batches(
     step: int = 1,
     first_batch_only: bool = True,
     return_trajectory: bool = True,
+    trajectory_dtype: torch.dtype | None = None,
     sampler: str = "ddpm",
     ddim_steps: int = 50,
     ddim_eta: float = 1.0,
@@ -225,26 +249,47 @@ def sample_structure_batches(
 ) -> list[np.ndarray]:
     """Sample numpy batches on ``device`` (where the model lives); returns
     per-sample arrays shaped (T, len_i, 8) (trajectory) or (len_i, 8)
-    (final only), the reference output.pkl layout."""
+    (final only), the reference output.pkl layout, in f32 (a
+    ``trajectory_dtype`` trajectory travels to the host in its type and
+    becomes f32 there, as the JAX package's does).
+
+    Batch n's copy to the host runs on a side stream while batch n+1
+    samples (e3diff_tpu/sampling/structure.py:167-205, the pending /
+    materialize pair): its result is a copy of the sampler's buffers,
+    queued before the next batch's replays, and the host slices it once
+    the next batch is queued."""
     device = resolve_device(device)
     run = make_structure_sampler(
         model, diffusion, step=step, return_trajectory=return_trajectory,
-        sampler=sampler, ddim_steps=ddim_steps, ddim_eta=ddim_eta,
+        trajectory_dtype=trajectory_dtype, sampler=sampler,
+        ddim_steps=ddim_steps, ddim_eta=ddim_eta,
         guidance_scale=guidance_scale)
     generator = torch.Generator(device=device).manual_seed(seed)
+    copies = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def materialize(pending):
+        out, done, lengths, num_valid = pending
+        if done is not None:
+            done.synchronize()
+        out = out.float().numpy()
+        if return_trajectory:
+            return [out[:, i, :lengths[i], :] for i in range(num_valid)]
+        return [out[i, :lengths[i], :] for i in range(num_valid)]
+
     results = []
+    pending = None
     for batch in batches:
         tbatch = {k: torch.as_tensor(np.asarray(v), device=device)
                   for k, v in strip_meta(batch).items()}
         final, traj = run(tbatch, generator)
+        out, done = _to_host(traj if return_trajectory else final, copies)
         lengths = np.asarray(batch["ligand_attn_mask"]).sum(1).astype(int)
         num_valid = int(batch.get("num_valid", len(lengths)))
-        if return_trajectory:
-            traj = traj.float().cpu().numpy()
-            results.extend(traj[:, i, :lengths[i], :] for i in range(num_valid))
-        else:
-            final = final.float().cpu().numpy()
-            results.extend(final[i, :lengths[i], :] for i in range(num_valid))
+        if pending is not None:
+            results.extend(materialize(pending))
+        pending = (out, done, lengths, num_valid)
         if first_batch_only:
             break
+    if pending is not None:
+        results.extend(materialize(pending))
     return results

@@ -5,10 +5,12 @@ slot, the resumable ``last`` slot and the final weights.
 
 On a CUDA device every train step is a replay of the trainer's step
 captured as a CUDA graph (Trainer.capture) at the first batch of each
-shape, as ``jax.jit`` compiles once per shape; a step that cannot be
-captured raises. On the CPU, and on a gloo mesh (whose collectives stage
-through the host and cannot be captured), the steps run eagerly. The
-eval step runs eagerly on both. ``profile_dir`` profiles the train steps
+shape, as ``jax.jit`` compiles once per shape, and every eval step a
+replay of the eval step captured the same way (Trainer.capture_eval; the
+validation batches are zero-padded to one shape, so one graph serves
+them); a step that cannot be captured raises. On the CPU, and on a gloo
+mesh (whose collectives stage through the host and cannot be captured),
+both steps run eagerly. ``profile_dir`` profiles the train steps
 of one epoch (the second of the run, or its only one) and prints their
 digest (utils/profiling.py).
 
@@ -113,22 +115,34 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
         return (to_device(b, device) for b in batches)
 
     captured = {}   # batch shapes -> CapturedStep
+    evals = {}      # batch shapes -> the captured eval step
     capture = device.type == "cuda" and (mesh is None or mesh.can_capture)
     pool = torch.cuda.graph_pool_handle() if capture else None
     # the GEMMs' operations of the epoch's captured steps, their warm-up
     # steps included: a trace of replays shows none (utils/profiling.py)
     gemm_flops = 0.0
 
+    def shapes(batch):
+        return tuple((k, tuple(v.shape)) for k, v in batch.items())
+
     def train_step(batch):
         nonlocal gemm_flops
         if not capture:
             return trainer.train_step(batch)
-        key = tuple((k, tuple(v.shape)) for k, v in batch.items())
+        key = shapes(batch)
         if key not in captured:
             captured[key] = trainer.capture(batch, pool=pool)
             gemm_flops += WARMUP_CALLS * captured[key].gemm_flops
         gemm_flops += captured[key].gemm_flops
         return captured[key](batch)
+
+    def eval_step(batch):
+        if not capture:
+            return trainer.eval_step(batch)
+        key = shapes(batch)
+        if key not in evals:
+            evals[key] = trainer.capture_eval(batch, pool=pool)
+        return evals[key](batch)
 
     # the second epoch of this run (past the capture), or its only one
     profile_epoch = (start_epoch + 1 if max_epochs - start_epoch > 1
@@ -170,7 +184,7 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
         if val_batches is not None:
             val_sums = MetricSums()
             for b in staged(val_batches()):
-                val_sums.add(trainer.eval_step(b))
+                val_sums.add(eval_step(b))
             val_means = val_sums.means()
             if val_means:
                 log_fn(f"Validation Loss:{val_means['val_loss']}")
@@ -190,7 +204,7 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
                                       "epoch": epoch, "best": best.best})
             record["ckpt_wait_seconds"] = time.perf_counter() - t_ckpt
 
-    for step in captured.values():
+    for step in (*captured.values(), *evals.values()):
         step.close()
     if manager is not None:
         manager.save("final", trainer.weights())

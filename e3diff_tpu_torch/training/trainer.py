@@ -1,7 +1,8 @@
 """What the two trainers share: the train step (accumulated gradients
 through the kernels, clipping and AdamW, EMA), eager or captured as one
 CUDA graph (the counterpart of the JAX package's jitted train_step), the
-eval step, the resumable state and the reference-layout weights.
+eval step, eager or captured too, the resumable state and the
+reference-layout weights.
 
 On a mesh (parallel/mesh.py; the model built for it) each rank trains on
 its dp rows of the global batch: every draw of the step (t, noise,
@@ -161,6 +162,16 @@ class Trainer:
         loss, aux = self._loss(self._with_draws(batch, draws))
         return self._metrics("val", loss, aux)
 
+    def capture_eval(self, batch: dict, *, pool=None,
+                     **draws) -> "CapturedStep":
+        """The eval step captured as one CUDA graph for batches of
+        ``batch``'s keys and shapes (the jitted eval step of the JAX
+        package, e3diff_tpu/training/structure.py:172-173): see
+        CapturedStep. Refused where ``capture`` is."""
+        check_capturable(self.mesh, True)
+        return CapturedStep(self, self._with_draws(batch, draws), pool=pool,
+                            train=False)
+
     # -- checkpoints -----------------------------------------------------
     def _full(self, tensors: dict) -> dict:
         """A dict keyed by the model's state_dict keys, its tp shards
@@ -247,23 +258,28 @@ class CapturedStep:
     """A trainer's train step captured as one CUDA graph: the forward,
     ``accumulated_grads`` (every microbatch), clipping, AdamW and the EMA,
     over static device copies of one batch's tensors (and its injected
-    draws). Calling it with a batch of the same keys and shapes copies the
-    batch in, replays the graph, and returns ``metrics``: the step's
-    metrics as static tensors, which the next call rewrites.
+    draws); or, with ``train=False``, its eval step (the forward under
+    no_grad in eval mode, and the metrics). Calling it with a batch of the
+    same keys and shapes copies the batch in, replays the graph, and
+    returns ``metrics``: the step's metrics as static tensors, which the
+    next call rewrites (a caller that keeps them queues its copy before
+    the next replay, as ``MetricSums.add`` does on the same stream).
 
     Every draw of the step comes from the trainer's generator, which the
     graph registers: each replay draws the values the next eager step
     would. The warm-up calls before the capture take real steps, inside
-    ``trainer.restored()``: the first replay is the trainer's next step.
-    ``launches``: the kernels' launches at the capture, by name.
-    ``gemm_flops``: the GEMMs' operations in a step, counted in the first
-    warm-up call (utils/profiling.py::count_gemm_flops), for the digest of
-    replays."""
+    ``trainer.restored()`` (an eval step changes the generator alone, and
+    only the generator is put back): the first replay is the trainer's
+    next step. ``launches``: the kernels' launches at the capture, by
+    name. ``gemm_flops``: the GEMMs' operations in a step, counted in the
+    first warm-up call (utils/profiling.py::count_gemm_flops), for the
+    digest of replays."""
 
-    def __init__(self, trainer: Trainer, batch: dict, *, pool=None):
+    def __init__(self, trainer: Trainer, batch: dict, *, pool=None,
+                 train: bool = True):
         if trainer.generator is None:
-            raise ValueError("capturing a train step needs the trainer's "
-                             "generator")
+            raise ValueError("capturing a train or eval step needs the "
+                             "trainer's generator")
         device = trainer.optimizer.params[0].device
         self.static = {}
         for k, v in batch.items():
@@ -272,15 +288,18 @@ class CapturedStep:
             fill_static(self.static[k], v)
         flops = []
 
+        run = trainer._step if train else trainer.eval_step
+
         def step():
             if flops:
-                return trainer._step(self.static)
-            out, n = count_gemm_flops(lambda: trainer._step(self.static))
+                return run(self.static)
+            out, n = count_gemm_flops(lambda: run(self.static))
             flops.append(n)
             return out
 
-        with trainer.restored():
-            self.call = CapturedCall(step, pool=pool, grad=True,
+        with trainer.restored() if train else _generator_restored(
+                trainer.generator):
+            self.call = CapturedCall(step, pool=pool, grad=train,
                                      generators=(trainer.generator,))
         self.gemm_flops = flops[0]
         self.metrics = self.call.out
@@ -302,3 +321,13 @@ class CapturedStep:
     def close(self) -> None:
         self.call.close()
         self.metrics = None
+
+
+@contextlib.contextmanager
+def _generator_restored(generator: torch.Generator):
+    """Put ``generator`` back on exit where it was on entry."""
+    state = generator.get_state()
+    try:
+        yield
+    finally:
+        generator.set_state(state)

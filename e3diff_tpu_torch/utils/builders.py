@@ -28,6 +28,7 @@ def transformer_configs(cfg: ExperimentConfig, init_style: str
         dropout=cfg.dropout_p, attention_dropout=cfg.dropout_p,
         init_style=init_style,
         dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
+        remat=cfg.remat,
     )
     return (TransformerConfig(**base, add_cross_attention=False),
             TransformerConfig(**base, add_cross_attention=True))

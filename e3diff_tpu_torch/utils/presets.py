@@ -9,7 +9,8 @@ equivalents; the CLIs expose every field as a flag.
 
 A ``config.json`` sidecar written next to a checkpoint by either package
 reads here: the fields the port has are taken from it, the JAX package's
-XLA layout fields (scan_layers, remat) are left out.
+XLA layout field scan_layers is left out (the port reads scan-layout
+weights, utils/weights.py).
 """
 
 from __future__ import annotations
@@ -58,6 +59,10 @@ class ExperimentConfig:
     accum_steps: int = 1             # microbatches per step (interleaved)
     mu_dtype: str = "f32"            # AdamW first moment: f32 or bf16
     cond_dropout: float = 0.0        # classifier-free guidance training
+    # activation checkpointing of the stack layers in training: none |
+    # layer | dots (models/blocks.py::TransformerStack; the numbers are
+    # unchanged, peak memory against a second forward in the backward)
+    remat: str = "none"
 
 
 def structure_train_config(**overrides) -> ExperimentConfig:

@@ -3,9 +3,9 @@
 Run as ``python _torch_parallel_worker.py RANK WORLD DP TP WORKDIR``: joins
 a gloo job through ``file://WORKDIR/rendezvous``, builds the (DP, TP) mesh
 on the CPU, runs every case of ``WORKDIR/input.pt`` (train steps of both
-models, samplers, the design engine) on its rows and shard, and writes
-what it got to ``WORKDIR/rank{RANK}.pt``. Imports torch and the port,
-never JAX.
+models, and where it has them samplers and the design engine) on its rows
+and shard, and writes what it got to ``WORKDIR/rank{RANK}.pt``. Imports
+torch and the port, never JAX.
 
 Run as ``python _torch_parallel_worker.py cli RENDEZVOUS MODULE ARGS...``
 with torchrun's RANK and WORLD_SIZE set: joins a gloo job through
@@ -90,11 +90,13 @@ def train_case(case, mesh):
     trainer.load_full_state_dict(full)
     reloaded = all(torch.equal(before[k], v)
                    for k, v in model.state_dict().items())
-    try:
-        trainer.capture(local, **draws)
-        refused = False
-    except RuntimeError:
-        refused = True
+    refused = True   # neither the train step nor the eval step captures
+    for capture in (trainer.capture, trainer.capture_eval):
+        try:
+            capture(local, **draws)
+            refused = False
+        except RuntimeError:
+            pass
     return {"metrics": {k: v.item() for k, v in metrics.items()},
             "params": full["model"], "mu": full["optimizer"]["mu"],
             "local": {k: v.clone() for k, v in model.state_dict().items()},
@@ -148,9 +150,10 @@ def main(rank, world, dp, tp, workdir):
     out = {"mesh": (mesh.dp_rank, mesh.tp_rank)}
     for name, case in spec["train"].items():
         out[name] = train_case(case, mesh)
-    for name, case in spec["sample"].items():
+    for name, case in spec.get("sample", {}).items():
         out[name] = sample_case(case, mesh)
-    out["engine"] = engine_case(spec["engine"], mesh)
+    if "engine" in spec:
+        out["engine"] = engine_case(spec["engine"], mesh)
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     dist.destroy_process_group()
 

@@ -444,7 +444,7 @@ def test_dp_tp_step_matches_one_process_step_at_dropout(world, kind):
     _check_step(ranks[0], metrics, params, mu)
     for r in ranks:
         torch.testing.assert_close(r["next_draw"], next_draw, atol=0, rtol=0)
-        assert r["capture_refused"]   # a gloo mesh cannot be captured
+        assert r["capture_refused"]   # a gloo mesh captures no step
         assert r["reloaded"]          # full state -> shard, the same bits
     rules = t_mesh.param_sharding_rules(params, types.SimpleNamespace(tp=TP))
     for dp_rank in range(DP):   # tp ranks: the replicated tensors

@@ -8,8 +8,8 @@ test_torch_engine.py (hidden 32, 4 heads, 2 layers, DDIM-3, D3PM over 6
 steps) and to a JAX server over a tiny JAX engine with the same weights,
 and holds the two to the same status codes and the same JSON keys (the
 same nesting and list lengths, and the same JSON types); ``/config``'s
-``experiment`` differs only by the JAX config's ``remat`` and
-``scan_layers``, which the port leaves out.
+``experiment`` differs only by the JAX config's ``scan_layers``, which
+the port leaves out.
 """
 
 import json
@@ -45,7 +45,7 @@ from tests.test_torch_engine import (  # noqa: F401  (params: a fixture)
 
 BATCHERS = [pytest.param((MicroBatcher, QueueFullError), id="port"),
             pytest.param((JMicroBatcher, JQueueFullError), id="jax")]
-JAX_ONLY_CONFIG = {"remat", "scan_layers"}
+JAX_ONLY_CONFIG = {"scan_layers"}
 
 
 # ---------------------------------------------------------------- batcher
