@@ -75,7 +75,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 10. serving at full width, int8_matmul: the captured samplers against
    the eager loop on the same draws (structure DDIM-25, DDPM-1000 and a
    CFG DDIM-25 batch with per-slot scales; sequence D3PM-50, plain and
-   CFG), within GRAPH_TOL, with their seconds; the launches each captured
+   CFG), within GRAPH_TOL, with their seconds; the sequence program's
+   one-step seam, ``load`` then its step replays and the final replay,
+   against its ``run`` bit for bit; the launches each captured
    call makes at capture and, by kernel name in a torch.profiler trace,
    at one replay; a design batch of 32 through DesignEngine with captured
    and with eager samplers (seconds, and with --profile the device idle
@@ -1595,6 +1597,16 @@ def serving_phase(torch, kernels, model, enc, dec, diffusion, batch, card,
             check_replays(torch, prog, SEQ_CALLS, name)
         want, eager_s = timed(torch, lambda: eager(sb, noise=noise, scale=w))
         got, graph_s = timed(torch, lambda: run(sb, noise=noise, scale=w))
+        prog.load(sb, x_init, gumbel, 1.0 if w is None else w)
+        for _ in range(prog.n_steps):
+            prog.step.replay()
+        prog.final.replay()
+        seam = prog.final.out.clone()
+        print(f"  {name}: load + {prog.n_steps} step replays + the final "
+              f"replay equal run bit for bit: {torch.equal(seam, got)}",
+              flush=True)
+        check(torch.equal(seam, got), f"{name}: the one-step seam differs "
+              "from run")
         err = (got.float() - want.float()).abs().max().item()
         agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
         seconds[name] = {"eager": eager_s, "captured": graph_s,

@@ -6,6 +6,10 @@ The host work left is numpy batch assembly (data/dataset.py::batches)
 and the host-to-device copy: each array goes to pinned memory and then to
 the device with ``non_blocking=True``, so the copy runs on the card's copy
 engine, ordered before the step that reads it on the same stream.
+
+The consumer's wait for each batch is a ``train.data_wait`` span
+(utils/telemetry.py) with the queue's depth at entry (``depth``): the
+time a step waited on its input.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from e3diff_tpu_torch.data.dataset import strip_meta
+from e3diff_tpu_torch.utils import telemetry
 
 _END = object()
 
@@ -69,7 +74,8 @@ def prefetch_to_device(iterator: Iterable[dict], device, size: int = 2
                      daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with telemetry.span("train.data_wait", depth=q.qsize()):
+                item = q.get()
             if item is _END:
                 return
             if isinstance(item, BaseException):

@@ -19,7 +19,9 @@ raises; nothing falls back to eager launches.
 
 The kernels' launch counters (ops/kernels.py) move when a kernel is
 launched from Python: in the warm-up and at capture, never on replay. A
-capture records its own launches by kernel name in ``launches``.
+capture records its own launches by kernel name in ``launches``. The
+warm-up and the capture run inside a ``graphs.capture`` span
+(utils/telemetry.py) whose ``owner`` names the captured call's user.
 
 A tensor-parallel model's NCCL all-reduces are captured with the rest of
 its call; a gloo mesh's collectives stage through the host and cannot
@@ -33,6 +35,7 @@ from typing import Callable
 import torch
 
 from e3diff_tpu_torch.ops import kernels
+from e3diff_tpu_torch.utils import telemetry
 
 WARMUP_CALLS = 2
 
@@ -50,33 +53,36 @@ class CapturedCall:
     and backward), else under ``no_grad``. Each of ``generators`` (CUDA
     ``torch.Generator``s that ``fn`` draws from) is registered with the
     graph, so that every replay draws the next values of its Philox
-    sequence, as an eager call would."""
+    sequence, as an eager call would. ``owner`` (``structure``,
+    ``sequence``, ``train``, ``eval``) tags the capture's span."""
 
     def __init__(self, fn: Callable, *, pool, reset: Callable | None = None,
-                 grad: bool = False, generators: tuple = ()):
-        self.graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            if not hasattr(self.graph, "register_generator_state"):
-                raise RuntimeError(
-                    f"torch {torch.__version__} cannot capture draws from "
-                    "a torch.Generator of the caller's "
-                    "(CUDAGraph.register_generator_state is missing)")
-            self.graph.register_generator_state(gen)
-        capture = torch.cuda.graph(self.graph, pool=pool,
-                                   capture_error_mode="thread_local")
-        side = capture.capture_stream
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), torch.set_grad_enabled(grad):
-            for _ in range(WARMUP_CALLS):
-                if reset is not None:
-                    reset()
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        before = _launch_counts()
-        with torch.set_grad_enabled(grad), capture:
-            self.out = fn()
-        after = _launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after}
+                 grad: bool = False, generators: tuple = (),
+                 owner: str = ""):
+        with telemetry.span("graphs.capture", owner=owner):
+            self.graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                if not hasattr(self.graph, "register_generator_state"):
+                    raise RuntimeError(
+                        f"torch {torch.__version__} cannot capture draws from "
+                        "a torch.Generator of the caller's "
+                        "(CUDAGraph.register_generator_state is missing)")
+                self.graph.register_generator_state(gen)
+            capture = torch.cuda.graph(self.graph, pool=pool,
+                                       capture_error_mode="thread_local")
+            side = capture.capture_stream
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), torch.set_grad_enabled(grad):
+                for _ in range(WARMUP_CALLS):
+                    if reset is not None:
+                        reset()
+                    fn()
+            torch.cuda.current_stream().wait_stream(side)
+            before = _launch_counts()
+            with torch.set_grad_enabled(grad), capture:
+                self.out = fn()
+            after = _launch_counts()
+            self.launches = {k: after[k] - before[k] for k in after}
 
     def replay(self) -> None:
         self.graph.replay()

@@ -13,6 +13,19 @@ same step runs as a Python loop, on the same draws. ``generated_angles``
 replaces the native ligand backbone angles with the structure sampler's
 (the end-to-end pipeline). A mesh model samples its rank's dp rows, as
 in sampling/structure.py.
+
+One step on a given state: a bucket's ``SequenceProgram`` (``run.program
+(batch)``) takes the batch, the one-hots ``x`` and the draws into its
+static buffers with ``load(batch, x, gumbel, scale)``, which leaves it at
+step 0 (``state.i``; set it to take a later step of ``state.s`` and
+``state.t``); each ``step.replay()`` then takes one reverse step in place
+on ``state.x``, and ``final.replay()`` writes the s = 0 logits to
+``final.out``. ``run`` is ``load``, every step and the final forward, the
+same bits.
+
+Each sampler call runs inside a ``sequence.run`` span (utils/telemetry.py)
+with its CUDA time on the card (``captured`` when the call captured its
+bucket's program).
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ from e3diff_tpu_torch.sampling.graphs import (
     check_capturable,
     fill_static,
 )
+from e3diff_tpu_torch.utils import telemetry
 from e3diff_tpu_torch.utils.device import resolve_device
 from e3diff_tpu_torch.utils.graph_cache import GraphCache
 
@@ -85,7 +99,8 @@ class SequenceProgram:
         if guided:
             self.prepare = CapturedCall(
                 lambda: make_denoise_fn(model, self.inputs, guided=True,
-                                        scale=self.scale), pool=pool)
+                                        scale=self.scale), pool=pool,
+                owner="sequence")
             self.prepare.replay()
             denoise_fn = self.prepare.out
         else:
@@ -93,26 +108,34 @@ class SequenceProgram:
         self.step = CapturedCall(
             lambda: d3pm.reverse_step(denoise_fn, self.state,
                                       diverse=diverse),
-            pool=pool, reset=self.state.i.zero_)
+            pool=pool, reset=self.state.i.zero_, owner="sequence")
         self.final = CapturedCall(
-            lambda: d3pm.final_logits(denoise_fn, self.state.x), pool=pool)
+            lambda: d3pm.final_logits(denoise_fn, self.state.x), pool=pool,
+            owner="sequence")
         self.n_steps = n
 
-    def run(self, batch: dict, x_init, gumbel, scale):
-        """Copy the batch, the scale and the draws into the static buffers,
-        replay the steps and the final forward; returns a copy of the final
-        logits."""
+    def load(self, batch: dict, x, gumbel, scale) -> None:
+        """Copy the batch's COND_FIELDS, the (B,) scale (guided programs),
+        the one-hots ``x`` and every step's Gumbel draws (diverse
+        programs) into the static buffers, put ``state.i`` at step 0, and
+        replay ``prepare``: each ``step.replay()`` after it takes one
+        reverse step from ``x``."""
         for k, buf in self.inputs.items():
             fill_static(buf, batch[k])
         if self.scale is not None:
             fill_static(self.scale, scale)
         st = self.state
-        fill_static(st.x, x_init)
+        fill_static(st.x, x)
         if st.gumbel is not None:
             fill_static(st.gumbel, gumbel)
         st.i.zero_()
         if self.prepare is not None:
             self.prepare.replay()
+
+    def run(self, batch: dict, x_init, gumbel, scale):
+        """``load`` the batch and the draws, replay the steps and the final
+        forward; returns a copy of the final logits."""
+        self.load(batch, x_init, gumbel, scale)
         for _ in range(self.n_steps):
             self.step.replay()
         self.final.replay()
@@ -162,47 +185,54 @@ def make_sequence_sampler(model, d3pm: D3PMDiffusion, *, diverse: bool = True,
         cache = GraphCache()
     flags = ("sequence", diverse, n_steps, guided)
 
-    def program(batch) -> SequenceProgram:
+    def cached(batch) -> tuple[SequenceProgram, bool]:
+        """The bucket's program, and whether this call captured it."""
         key = (id(model), id(d3pm), *flags,
                *((k, tuple(batch[k].shape), str(batch[k].dtype))
                  for k in COND_FIELDS + ("ligand_seq",)))
         prog = cache.get(key, model, d3pm)
-        if prog is None:
-            prog = SequenceProgram(model, d3pm, batch, diverse=diverse,
-                                   n_steps=n_steps, guided=guided,
-                                   pool=cache.pool())
-            cache.put(key, prog, model, d3pm)
-        return prog
+        if prog is not None:
+            return prog, False
+        prog = SequenceProgram(model, d3pm, batch, diverse=diverse,
+                               n_steps=n_steps, guided=guided,
+                               pool=cache.pool())
+        cache.put(key, prog, model, d3pm)
+        return prog, True
 
     @torch.no_grad()
     def run(batch, generator=None, noise=None, scale=None):
         if noise is None and generator is None:
             raise ValueError("pass a generator or injected noise")
         lig = batch["ligand_seq"]
-        if noise is None:
-            n = lig.shape[0]
-            r0, rows = (0, n) if mesh is None else mesh.rows(n)
-            x_init, gumbel = d3pm.draw_noise(
-                (rows,) + tuple(lig.shape[1:]), n_steps, generator=generator,
-                device=device, dtype=lig.dtype, diverse=diverse)
-            x_init = x_init[r0:r0 + n]
-            if gumbel is not None:
-                gumbel = gumbel[:, r0:r0 + n]
-        else:
-            x_init, gumbel = noise["x_init"], noise.get("gumbel")
-            if diverse and gumbel is None:
-                raise ValueError("diverse sampling needs noise['gumbel']")
-        w = guidance_scale if scale is None else scale
-        if graphs:
-            return program(batch).run(batch, x_init, gumbel, w)
-        tbatch = {k: batch[k].to(device) for k in COND_FIELDS}
-        return d3pm.sample_loop(
-            make_denoise_fn(model, tbatch, guided=guided, scale=w),
-            x_init.to(device=device, dtype=lig.dtype),
-            gumbel=None if gumbel is None else gumbel.to(device),
-            diverse=diverse, n_steps=n_steps)
+        bucket = (*lig.shape[:2], batch["receptor_seq"].shape[1])
+        with telemetry.span("sequence.run", device=device.type == "cuda",
+                            bucket=bucket) as span:
+            if noise is None:
+                n = lig.shape[0]
+                r0, rows = (0, n) if mesh is None else mesh.rows(n)
+                x_init, gumbel = d3pm.draw_noise(
+                    (rows,) + tuple(lig.shape[1:]), n_steps,
+                    generator=generator, device=device, dtype=lig.dtype,
+                    diverse=diverse)
+                x_init = x_init[r0:r0 + n]
+                if gumbel is not None:
+                    gumbel = gumbel[:, r0:r0 + n]
+            else:
+                x_init, gumbel = noise["x_init"], noise.get("gumbel")
+                if diverse and gumbel is None:
+                    raise ValueError("diverse sampling needs noise['gumbel']")
+            w = guidance_scale if scale is None else scale
+            if graphs:
+                prog, span.attrs["captured"] = cached(batch)
+                return prog.run(batch, x_init, gumbel, w)
+            tbatch = {k: batch[k].to(device) for k in COND_FIELDS}
+            return d3pm.sample_loop(
+                make_denoise_fn(model, tbatch, guided=guided, scale=w),
+                x_init.to(device=device, dtype=lig.dtype),
+                gumbel=None if gumbel is None else gumbel.to(device),
+                diverse=diverse, n_steps=n_steps)
 
-    run.program = program
+    run.program = lambda batch: cached(batch)[0]
     return run
 
 

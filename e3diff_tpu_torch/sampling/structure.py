@@ -19,6 +19,12 @@ batch's shape and the rank keeps its rows, so every rank of one seed
 draws what one device would. NCCL's collectives are captured in the
 graphs; a gloo mesh's cannot be, and there the sampler runs with
 ``eager=True``.
+
+Each sampler call runs inside a ``structure.run`` span (utils/telemetry.py)
+with its CUDA time on the card: the draws, the copies into the static
+buffers and the replays enqueued (``captured`` when the call captured its
+bucket's program). ``sample_structure_batches`` adds ``sample.to_device``
+and ``sample.results`` around each batch's copy in and read out.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from e3diff_tpu_torch.sampling.graphs import (
     check_capturable,
     fill_static,
 )
+from e3diff_tpu_torch.utils import telemetry
 from e3diff_tpu_torch.utils.device import resolve_device
 from e3diff_tpu_torch.utils.graph_cache import GraphCache
 
@@ -89,13 +96,14 @@ class StructureProgram:
             return_trajectory, trajectory_dtype)
         self.encode = CapturedCall(
             lambda: make_denoise_fn(model, self.inputs, guided=guided,
-                                    scale=self.scale), pool=pool)
+                                    scale=self.scale), pool=pool,
+            owner="structure")
         self.encode.replay()  # the step's warm-up reads the encoding
         denoise_fn = self.encode.out
         self.step = CapturedCall(
             lambda: diffusion.reverse_step(denoise_fn, self.state, ddim=ddim,
                                            eta=eta),
-            pool=pool, reset=self.state.i.zero_)
+            pool=pool, reset=self.state.i.zero_, owner="structure")
         self.n_steps = len(ts)
 
     def run(self, batch: dict, x_init, z, scale):
@@ -170,48 +178,55 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
     flags = ("structure", step, return_trajectory, str(trajectory_dtype),
              sampler, ddim_steps, float(ddim_eta), guided)
 
-    def program(batch) -> StructureProgram:
+    def cached(batch) -> tuple[StructureProgram, bool]:
+        """The bucket's program, and whether this call captured it."""
         key = (id(model), id(diffusion), *flags,
                *((k, tuple(batch[k].shape), str(batch[k].dtype))
                  for k in BATCH_KEYS))
         prog = cache.get(key, model, diffusion)
-        if prog is None:
-            prog = StructureProgram(
-                model, diffusion, batch, ts=ts, t_prev=t_prev,
-                ddim=sampler == "ddim", eta=ddim_eta, guided=guided,
-                return_trajectory=return_trajectory,
-                trajectory_dtype=trajectory_dtype, pool=cache.pool())
-            cache.put(key, prog, model, diffusion)
-        return prog
+        if prog is not None:
+            return prog, False
+        prog = StructureProgram(
+            model, diffusion, batch, ts=ts, t_prev=t_prev,
+            ddim=sampler == "ddim", eta=ddim_eta, guided=guided,
+            return_trajectory=return_trajectory,
+            trajectory_dtype=trajectory_dtype, pool=cache.pool())
+        cache.put(key, prog, model, diffusion)
+        return prog, True
 
     def run(batch, generator=None, noise=None, scale=None):
         if noise is None and generator is None:
             raise ValueError("pass a generator or injected noise")
         lig = batch["ligand_angles"]
-        if noise is None:
-            n = lig.shape[0]
-            r0, rows = (0, n) if mesh is None else mesh.rows(n)
-            x_init, z = diffusion.draw_noise(
-                (rows,) + tuple(lig.shape[1:]), len(ts), generator=generator,
-                device=device, dtype=lig.dtype)
-            x_init, z = x_init[r0:r0 + n], z[:, r0:r0 + n]
-        else:
-            x_init, z = noise["x_init"], noise["z"]
-        w = guidance_scale if scale is None else scale
-        if graphs:
-            return program(batch).run(batch, x_init, z, w)
-        tbatch = {k: batch[k].to(device) for k in BATCH_KEYS}
-        denoise_fn = make_denoise_fn(model, tbatch, guided=guided, scale=w)
-        kw = dict(noise=z, return_trajectory=return_trajectory,
-                  trajectory_dtype=trajectory_dtype)
-        if sampler == "ddim":
-            return diffusion.sample_loop_ddim(
-                denoise_fn, x_init.to(device), n_steps=ddim_steps,
-                eta=ddim_eta, **kw)
-        return diffusion.sample_loop(denoise_fn, x_init.to(device),
-                                     step=step, **kw)
+        bucket = (*lig.shape[:2], batch["receptor_seq"].shape[1])
+        with telemetry.span("structure.run", device=device.type == "cuda",
+                            bucket=bucket) as span:
+            if noise is None:
+                n = lig.shape[0]
+                r0, rows = (0, n) if mesh is None else mesh.rows(n)
+                x_init, z = diffusion.draw_noise(
+                    (rows,) + tuple(lig.shape[1:]), len(ts),
+                    generator=generator, device=device, dtype=lig.dtype)
+                x_init, z = x_init[r0:r0 + n], z[:, r0:r0 + n]
+            else:
+                x_init, z = noise["x_init"], noise["z"]
+            w = guidance_scale if scale is None else scale
+            if graphs:
+                prog, span.attrs["captured"] = cached(batch)
+                return prog.run(batch, x_init, z, w)
+            tbatch = {k: batch[k].to(device) for k in BATCH_KEYS}
+            denoise_fn = make_denoise_fn(model, tbatch, guided=guided,
+                                         scale=w)
+            kw = dict(noise=z, return_trajectory=return_trajectory,
+                      trajectory_dtype=trajectory_dtype)
+            if sampler == "ddim":
+                return diffusion.sample_loop_ddim(
+                    denoise_fn, x_init.to(device), n_steps=ddim_steps,
+                    eta=ddim_eta, **kw)
+            return diffusion.sample_loop(denoise_fn, x_init.to(device),
+                                         step=step, **kw)
 
-    run.program = program
+    run.program = lambda batch: cached(batch)[0]
     return run
 
 
@@ -279,17 +294,20 @@ def sample_structure_batches(
     results = []
     pending = None
     for batch in batches:
-        tbatch = {k: torch.as_tensor(np.asarray(v), device=device)
-                  for k, v in strip_meta(batch).items()}
+        with telemetry.span("sample.to_device"):
+            tbatch = {k: torch.as_tensor(np.asarray(v), device=device)
+                      for k, v in strip_meta(batch).items()}
         final, traj = run(tbatch, generator)
         out, done = _to_host(traj if return_trajectory else final, copies)
         lengths = np.asarray(batch["ligand_attn_mask"]).sum(1).astype(int)
         num_valid = int(batch.get("num_valid", len(lengths)))
         if pending is not None:
-            results.extend(materialize(pending))
+            with telemetry.span("sample.results"):
+                results.extend(materialize(pending))
         pending = (out, done, lengths, num_valid)
         if first_batch_only:
             break
     if pending is not None:
-        results.extend(materialize(pending))
+        with telemetry.span("sample.results"):
+            results.extend(materialize(pending))
     return results

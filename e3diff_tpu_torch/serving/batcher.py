@@ -9,6 +9,14 @@ lone request is never stuck behind an empty queue), and resolves each
 request's Future with its slice of the batched result. Latency is bounded
 by max_wait + one batch; throughput approaches the full-batch rate under
 load.
+
+Spans (utils/telemetry.py): each batch runs inside a ``batcher.batch``
+span on the worker thread (no profiler range, and no parent of the
+spans ``run_batch`` opens), and each ``submit_many`` call (one request)
+opens a ``batcher.queue_wait`` span, under the caller's span, that the
+worker closes when it dispatches the call's last slot; it names the
+batches (``batches``: their span ids) its slots rode in. ``stats()``
+reports the 95th percentile of the recent queue waits.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ import threading
 import time
 from concurrent.futures import Future
 from typing import Callable, Sequence
+
+from e3diff_tpu_torch.utils import telemetry
 
 
 class QueueFullError(RuntimeError):
@@ -46,15 +56,16 @@ class MicroBatcher:
     slots: submits beyond it raise QueueFullError instead of growing the
     queue. Default 4 * max_batch — enough to keep the device busy through
     a burst, small enough that accepted requests wait at most ~4 device
-    runs. Pass 0 for unbounded.
+    runs. Pass 0 for unbounded. ``name`` tags the batcher's spans.
     """
 
     def __init__(self, run_batch: Callable, max_batch: int = 64,
                  max_wait_ms: float = 25.0, linger_ms: float = 2.0,
-                 max_queue: int | None = None):
+                 max_queue: int | None = None, name: str = "batcher"):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self._run_batch = run_batch
+        self.name = name
         self._max_batch = max_batch
         self._max_queue = 4 * max_batch if max_queue is None else max_queue
         if self._max_queue < 0:
@@ -72,6 +83,7 @@ class MicroBatcher:
         self._stats = {"requests": 0, "batches": 0, "batched_slots": 0,
                        "errors": 0, "rejected": 0}
         self._latencies: collections.deque = collections.deque(maxlen=1024)
+        self._waits: collections.deque = collections.deque(maxlen=1024)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="e3diff-torch-microbatcher")
         self._thread.start()
@@ -106,11 +118,15 @@ class MicroBatcher:
                 raise QueueFullError(
                     f"request queue full ({depth}/{self._max_queue} "
                     f"pending slots)", retry_after_s=round(retry, 2))
+            wait = telemetry.start("batcher.queue_wait", batcher=self.name,
+                                   slots=len(items), batches=[])
+            wait.attrs["request"] = wait.parent
+            ticket = [wait, len(items)]    # the span, its slots not yet run
             out = []
             for item in items:
                 fut: Future = Future()
                 self._stats["requests"] += 1
-                self._queue.put((item, fut, time.monotonic()))
+                self._queue.put((item, fut, time.monotonic(), ticket))
                 out.append(fut)
         return out
 
@@ -128,7 +144,7 @@ class MicroBatcher:
         # fail anything still queued so clients don't hang
         while True:
             try:
-                _, fut, _ = self._queue.get_nowait()
+                _, fut, _, _ = self._queue.get_nowait()
             except queue.Empty:
                 break
             if not fut.done():
@@ -138,10 +154,14 @@ class MicroBatcher:
         with self._lock:
             out = dict(self._stats)
             lats = sorted(self._latencies)
+            waits = sorted(self._waits)
         out["queue_depth"] = self._queue.qsize()
         out["max_queue"] = self._max_queue
         out["mean_batch_occupancy"] = (
             out["batched_slots"] / out["batches"] if out["batches"] else 0.0)
+        if waits:
+            out["queue_wait_ms_p95"] = 1e3 * telemetry.nearest_rank(waits,
+                                                                    0.95)
         if lats:
             out["latency_ms_p50"] = 1e3 * lats[len(lats) // 2]
             out["latency_ms_p95"] = 1e3 * lats[min(int(len(lats) * 0.95),
@@ -174,35 +194,62 @@ class MicroBatcher:
                 break
         return items
 
+    def _dispatch(self, items, batch) -> None:
+        """Tell each item's request that its slot rides in ``batch``;
+        close the queue wait of a request whose last slot this is."""
+        for it in items:
+            ticket = it[3]
+            wait = ticket[0]
+            batches = wait.attrs["batches"]
+            if not batches or batches[-1] != batch.id:
+                batches.append(batch.id)
+            ticket[1] -= 1
+            if ticket[1] == 0:
+                telemetry.finish(wait, batch.t0)
+                with self._lock:
+                    self._waits.append(wait.seconds)
+
     def _loop(self) -> None:
         while not self._stop.is_set():
             items = self._collect()
             if not items:
                 continue
-            payloads = [it[0] for it in items]
-            futures = [it[1] for it in items]
-            t_enq = [it[2] for it in items]
+            # opened and closed by hand, so no profiler range: a profiler
+            # that run_batch starts or stops would find this span open
+            # across its edge and stretch its trace to the span's end
+            batch = telemetry.start("batcher.batch", batcher=self.name,
+                                    slots=len(items))
             try:
-                results = self._run_batch(payloads)
-                if len(results) != len(payloads):
-                    raise RuntimeError(
-                        f"run_batch returned {len(results)} results for "
-                        f"{len(payloads)} items")
-            except Exception as exc:  # noqa: BLE001 — forwarded to callers
-                with self._lock:
-                    self._stats["errors"] += len(futures)
-                    self._stats["batches"] += 1
-                    self._stats["batched_slots"] += len(futures)
-                for fut in futures:
-                    if not fut.done():
-                        fut.set_exception(exc)
-                continue
-            now = time.monotonic()
+                self._dispatch(items, batch)
+                self._run(items)
+            finally:
+                telemetry.finish(batch)
+
+    def _run(self, items) -> None:
+        payloads = [it[0] for it in items]
+        futures = [it[1] for it in items]
+        t_enq = [it[2] for it in items]
+        try:
+            results = self._run_batch(payloads)
+            if len(results) != len(payloads):
+                raise RuntimeError(
+                    f"run_batch returned {len(results)} results for "
+                    f"{len(payloads)} items")
+        except Exception as exc:  # noqa: BLE001 — forwarded to callers
             with self._lock:
+                self._stats["errors"] += len(futures)
                 self._stats["batches"] += 1
                 self._stats["batched_slots"] += len(futures)
-                for t0 in t_enq:
-                    self._latencies.append(now - t0)
-            for fut, res in zip(futures, results):
+            for fut in futures:
                 if not fut.done():
-                    fut.set_result(res)
+                    fut.set_exception(exc)
+            return
+        now = time.monotonic()
+        with self._lock:
+            self._stats["batches"] += 1
+            self._stats["batched_slots"] += len(futures)
+            for t0 in t_enq:
+                self._latencies.append(now - t0)
+        for fut, res in zip(futures, results):
+            if not fut.done():
+                fut.set_result(res)

@@ -30,6 +30,14 @@ other ranks, which run ``follow()`` until ``stop_followers()``. Each rank
 samples its dp rows (the noise drawn at the batch's shape from a
 generator of that seed, and cut), and the rows come back to rank 0 as
 host arrays over the mesh's gloo group.
+
+Spans (utils/telemetry.py), on the caller's thread: ``engine.batch`` for
+each device batch (its ligand, receptor and batch bucket, the slots used
+and the ligand positions they fill), and inside it ``engine.inputs``
+(stacking the slots and their page-locked copy), the samplers'
+``structure.run`` and ``sequence.run``, ``engine.readback`` (the blocking
+reads of the results) and ``engine.results`` (the PDB text and the
+records, on the host). ``stats()`` counts the device batches per bucket.
 """
 
 from __future__ import annotations
@@ -37,7 +45,6 @@ from __future__ import annotations
 import dataclasses
 import sys
 import threading
-import time
 from typing import Sequence
 
 import numpy as np
@@ -48,6 +55,7 @@ from e3diff_tpu_torch.geometry.nerf import nerf_build_backbone_batch
 from e3diff_tpu_torch.geometry.pdb import backbone_pdb_text
 from e3diff_tpu_torch.sampling.sequence import make_sequence_sampler
 from e3diff_tpu_torch.sampling.structure import make_structure_sampler
+from e3diff_tpu_torch.utils import telemetry
 from e3diff_tpu_torch.utils.device import resolve_device
 from e3diff_tpu_torch.utils.graph_cache import GraphCache
 
@@ -183,6 +191,8 @@ class DesignEngine:
         # one device, callers on many threads: one batch at a time
         self._device_lock = threading.Lock()
         self._warm = False
+        self._stats_lock = threading.Lock()
+        self._buckets: dict[tuple, list[int]] = {}
 
     # ------------------------------------------------------------------
     @classmethod
@@ -343,19 +353,45 @@ class DesignEngine:
                     f"warmup shape (rec={rb}, lig={b}, batch={bb}) is not "
                     f"in the configured buckets {self.receptor_buckets} x "
                     f"{self.ligand_buckets} x {self.batch_buckets}")
-            t0 = time.monotonic()
             # a pocket of exactly rb residues routes to bucket rb
             rec = pocket_record("A" * rb, np.zeros((rb, 8), np.float32), b)
-            self.design_records([rec] * bb, generator=generator,
-                                return_pdb=False)
+            with telemetry.span("engine.warmup", receptor=rb, ligand=b,
+                                batch=bb) as warm:
+                self.design_records([rec] * bb, generator=generator,
+                                    return_pdb=False)
             print(f"[warmup {i + 1}/{len(shapes)}] rec={rb} lig={b} "
-                  f"batch={bb}: {time.monotonic() - t0:.1f}s",
+                  f"batch={bb}: {warm.seconds:.1f}s",
                   file=sys.stderr, flush=True)
         self._warm = True
 
     @property
     def ready(self) -> bool:
         return self._warm
+
+    def stats(self) -> dict:
+        """Device batches run so far, per kind and (ligand, receptor,
+        batch) bucket: ``batches``, ``slots`` used, ``dead_slots`` and
+        ``padded_positions`` (ligand positions no slot fills)."""
+        with self._stats_lock:
+            rows = sorted(self._buckets.items())
+        return {"buckets": [
+            {"kind": kind, "ligand": lig, "receptor": rec, "batch": bb,
+             "batches": n, "slots": slots, "dead_slots": n * bb - slots,
+             "padded_positions": n * bb * lig - used}
+            for (kind, lig, rec, bb), (n, slots, used) in rows]}
+
+    def _count(self, span, kind: str, chunk, batch) -> None:
+        """The batch's bucket and fill, on its span and in ``stats()``."""
+        bb, lig = batch["ligand_attn_mask"].shape[:2]
+        rec = batch["receptor_attn_mask"].shape[1]
+        used = int(batch["ligand_attn_mask"].sum())
+        span.attrs.update(ligand=lig, receptor=rec, batch=bb,
+                          slots=len(chunk), positions=used)
+        with self._stats_lock:
+            row = self._buckets.setdefault((kind, lig, rec, bb), [0, 0, 0])
+            row[0] += 1
+            row[1] += len(chunk)
+            row[2] += used
 
     # ------------------------------------------------------------------
     def design_records(self, records: Sequence[dict],
@@ -481,58 +517,69 @@ class DesignEngine:
 
     def _results(self, chunk, batch, pred, angles, coords=None,
                  want_pdb=None) -> list[DesignResult]:
-        results = []
-        for i, slot in enumerate(chunk):
-            length = int(batch["ligand_attn_mask"][i].sum())
-            pdb = None
-            if want_pdb is not None and want_pdb[i]:
-                xyz = coords[i, :4 * length]
-                if length and not np.any(np.isnan(xyz)):
-                    # centred over the valid chain, as the trimmed chain's
-                    # own centred reconstruction (reference NaN guard kept)
-                    pdb = backbone_pdb_text(xyz - xyz.mean(0))
-            recovery = None
-            if not slot["_synthetic_ligand"]:
-                true = batch["ligand_seq"][i, :length].argmax(-1)
-                recovery = float((pred[i, :length] == true).sum()
-                                 / max(length, 1))
-            results.append(DesignResult(
-                sequence="".join(AA_VOCAB[j] for j in pred[i, :length]),
-                angles=np.asarray(angles[i, :length], np.float32), pdb=pdb,
-                recovery_rate=recovery))
-        return results
+        with telemetry.span("engine.results"):
+            results = []
+            for i, slot in enumerate(chunk):
+                length = int(batch["ligand_attn_mask"][i].sum())
+                pdb = None
+                if want_pdb is not None and want_pdb[i]:
+                    xyz = coords[i, :4 * length]
+                    if length and not np.any(np.isnan(xyz)):
+                        # centred over the valid chain, as the trimmed
+                        # chain's own centred reconstruction (reference
+                        # NaN guard kept)
+                        pdb = backbone_pdb_text(xyz - xyz.mean(0))
+                recovery = None
+                if not slot["_synthetic_ligand"]:
+                    true = batch["ligand_seq"][i, :length].argmax(-1)
+                    recovery = float((pred[i, :length] == true).sum()
+                                     / max(length, 1))
+                results.append(DesignResult(
+                    sequence="".join(AA_VOCAB[j]
+                                     for j in pred[i, :length]),
+                    angles=np.asarray(angles[i, :length], np.float32),
+                    pdb=pdb, recovery_rate=recovery))
+            return results
 
     def _design_batch(self, chunk, want_pdb, generator) -> list[DesignResult]:
         """Structure sampler, device NERF and sequence sampler for one
         same-bucket chunk; the host reads each result once per batch."""
-        batch = self._stack_slots(chunk)
-        bsz = len(batch["ligand_attn_mask"])
-        struct_kw = self._scale_kwargs(chunk, bsz, self._struct_guided,
-                                       "_guidance_scale", self.guidance_scale)
-        seq_kw = self._scale_kwargs(chunk, bsz, self._seq_guided,
-                                    "_seq_guidance_scale",
-                                    self.seq_guidance_scale)
-        if self.mesh is not None:
-            angles_np, pred = self._lead(
-                "design", batch, self._seed(generator),
-                struct_kw=struct_kw, seq_kw=seq_kw)
-            coords = None
-            if any(want_pdb):
-                with self._device_lock:
-                    coords = nerf_build_backbone_batch(torch.from_numpy(
-                        angles_np).to(self.device)).cpu().numpy()
+        with telemetry.span("engine.batch", kind="design") as span:
+            with telemetry.span("engine.inputs"):
+                batch = self._stack_slots(chunk)
+                tbatch = None if self.mesh is not None else self._tensors(
+                    batch)
+            self._count(span, "design", chunk, batch)
+            bsz = len(batch["ligand_attn_mask"])
+            struct_kw = self._scale_kwargs(chunk, bsz, self._struct_guided,
+                                           "_guidance_scale",
+                                           self.guidance_scale)
+            seq_kw = self._scale_kwargs(chunk, bsz, self._seq_guided,
+                                        "_seq_guidance_scale",
+                                        self.seq_guidance_scale)
+            if self.mesh is not None:
+                angles_np, pred = self._lead(
+                    "design", batch, self._seed(generator),
+                    struct_kw=struct_kw, seq_kw=seq_kw)
+                coords = None
+                if any(want_pdb):
+                    with self._device_lock, telemetry.span("engine.readback"):
+                        coords = nerf_build_backbone_batch(torch.from_numpy(
+                            angles_np).to(self.device)).cpu().numpy()
+                return self._results(chunk, batch, pred, angles_np, coords,
+                                     want_pdb)
+            with self._device_lock:
+                angles, logits = self._design_rows(tbatch, generator,
+                                                   struct_kw, seq_kw)
+                with telemetry.span("engine.readback"):
+                    coords = None
+                    if any(want_pdb):
+                        coords = nerf_build_backbone_batch(
+                            angles).cpu().numpy()
+                    angles_np = angles.float().cpu().numpy()
+                    pred = logits.float().argmax(-1).cpu().numpy()
             return self._results(chunk, batch, pred, angles_np, coords,
                                  want_pdb)
-        tbatch = self._tensors(batch)
-        with self._device_lock:
-            angles, logits = self._design_rows(tbatch, generator, struct_kw,
-                                               seq_kw)
-            coords = None
-            if any(want_pdb):
-                coords = nerf_build_backbone_batch(angles).cpu().numpy()
-            angles_np = angles.float().cpu().numpy()
-            pred = logits.float().argmax(-1).cpu().numpy()
-        return self._results(chunk, batch, pred, angles_np, coords, want_pdb)
 
     def _design_rows(self, tbatch, generator, struct_kw, seq_kw):
         """Both samplers over a batch of tensors: (angles, logits)."""
@@ -543,21 +590,29 @@ class DesignEngine:
 
     def _inverse_fold_batch(self, chunk, generator, noise
                             ) -> list[DesignResult]:
-        batch = self._stack_slots(chunk)
-        seq_kw = self._scale_kwargs(
-            chunk, len(batch["ligand_attn_mask"]), self._seq_guided,
-            "_seq_guidance_scale", self.seq_guidance_scale)
-        if self.mesh is not None:
-            if noise is not None:
-                noise = {k: v.cpu() for k, v in noise.items()}
-            _, pred = self._lead("inverse_fold", batch, self._seed(generator),
-                                 seq_kw=seq_kw, noise=noise)
+        with telemetry.span("engine.batch", kind="inverse_fold") as span:
+            with telemetry.span("engine.inputs"):
+                batch = self._stack_slots(chunk)
+                tbatch = None if self.mesh is not None else self._tensors(
+                    batch)
+            self._count(span, "inverse_fold", chunk, batch)
+            seq_kw = self._scale_kwargs(
+                chunk, len(batch["ligand_attn_mask"]), self._seq_guided,
+                "_seq_guidance_scale", self.seq_guidance_scale)
+            if self.mesh is not None:
+                if noise is not None:
+                    noise = {k: v.cpu() for k, v in noise.items()}
+                _, pred = self._lead("inverse_fold", batch,
+                                     self._seed(generator), seq_kw=seq_kw,
+                                     noise=noise)
+                return self._results(chunk, batch, pred,
+                                     batch["ligand_angles"])
+            with self._device_lock:
+                logits = self._seq_run(tbatch, generator, noise=noise,
+                                       **seq_kw)
+                with telemetry.span("engine.readback"):
+                    pred = logits.float().argmax(-1).cpu().numpy()
             return self._results(chunk, batch, pred, batch["ligand_angles"])
-        with self._device_lock:
-            logits = self._seq_run(self._tensors(batch), generator,
-                                   noise=noise, **seq_kw)
-            pred = logits.float().argmax(-1).cpu().numpy()
-        return self._results(chunk, batch, pred, batch["ligand_angles"])
 
     # -- the mesh: rank 0 leads, the other ranks follow ------------------
     def _seed(self, generator) -> int:

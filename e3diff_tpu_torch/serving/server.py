@@ -4,7 +4,10 @@ codes; stdlib only, no web framework).
 
 Endpoints:
   GET  /healthz  -> {"ok": true} once the engine is warm (503 before)
-  GET  /stats    -> micro-batcher counters + latency percentiles
+  GET  /stats    -> micro-batcher counters + latency percentiles, and
+                    "graphs" (the graph cache's hits, misses and
+                    evictions), "engine" (device batches per bucket) and
+                    "telemetry" (each span's count, mean and p95 ms)
   GET  /config   -> the engine's configuration and buckets
   POST /design   -> run the design pipeline for one request
   POST /inverse_fold -> sequences for a record's own backbone
@@ -20,14 +23,16 @@ POST /design body (JSON):
   "return_angles": false   include raw generated angles
 
 Response: {"designs": [{"sequence", "pdb"?, "angles"?, "recovery_rate"?},
-           ...], "latency_ms": ...}
+           ...], "latency_ms": ...}; latency_ms is the request's
+``server.request`` span so far, from reading the body to the reply.
 
 Concurrency model: the ThreadingHTTPServer thread-per-request front-end
 parses JSON and featurizes (and validates) each request; every device
 interaction funnels through a MicroBatcher's worker thread (one for
 design, one for inverse folding), which packs concurrent requests into
 one fixed-shape batch that replays the bucket's captured programs (see
-batcher.py and engine.py).
+batcher.py and engine.py). Spans (utils/telemetry.py): ``server.request``
+on the handler thread around each POST, ``server.featurize`` inside it.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 
 from e3diff_tpu_torch.serving.batcher import MicroBatcher, QueueFullError
 from e3diff_tpu_torch.serving.engine import DesignEngine, pocket_record
+from e3diff_tpu_torch.utils import telemetry
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -91,14 +97,14 @@ class DesignServer:
                 [s for s, _ in items],
                 return_pdb=[w for _, w in items]),
             max_batch=engine.batch_size, max_wait_ms=max_wait_ms,
-            linger_ms=linger_ms, max_queue=max_queue)
+            linger_ms=linger_ms, max_queue=max_queue, name="design")
         # inverse folding runs a different device program (sequence
         # sampler only), so it coalesces in its own queue; the engine's
         # device lock serializes the two programs on the card
         self.if_batcher = MicroBatcher(
             engine.inverse_fold_slots,
             max_batch=engine.batch_size, max_wait_ms=max_wait_ms,
-            linger_ms=linger_ms, max_queue=max_queue)
+            linger_ms=linger_ms, max_queue=max_queue, name="inverse_fold")
         self._httpd = _HTTPServer((host, port), self._make_handler())
         self._thread: threading.Thread | None = None
 
@@ -124,19 +130,20 @@ class DesignServer:
         self.if_batcher.shutdown()
 
     # ------------------------------------------------------------------
-    def _handle_design(self, payload: dict) -> dict:
-        t0 = time.monotonic()
+    def _handle_design(self, payload: dict, request) -> dict:
         record = _record_from_json(payload)
         n = int(payload.get("n_designs", 1))
         if not 1 <= n <= 4 * self.engine.batch_size:
             raise ValueError(
                 f"n_designs must be in [1, {4 * self.engine.batch_size}]")
+        request.attrs["slots"] = n
         want_pdb = bool(payload.get("return_pdb", True))
         # featurize (and validate) here, once per request; per-request
         # CFG scales need a CFG-enabled engine (else 400)
-        slot = self.engine.featurize(
-            record, guidance_scale=payload.get("guidance_scale"),
-            seq_guidance_scale=payload.get("seq_guidance_scale"))
+        with telemetry.span("server.featurize"):
+            slot = self.engine.featurize(
+                record, guidance_scale=payload.get("guidance_scale"),
+                seq_guidance_scale=payload.get("seq_guidance_scale"))
         futures = self.batcher.submit_many([(slot, want_pdb)] * n)
         results = [f.result(timeout=self.request_timeout_s)
                    for f in futures]
@@ -151,21 +158,22 @@ class DesignServer:
                 d["recovery_rate"] = r.recovery_rate
             designs.append(d)
         return {"designs": designs,
-                "latency_ms": 1e3 * (time.monotonic() - t0)}
+                "latency_ms": 1e3 * (time.monotonic() - request.t0)}
 
-    def _handle_inverse_fold(self, payload: dict) -> dict:
+    def _handle_inverse_fold(self, payload: dict, request) -> dict:
         """Design sequences for the record's OWN backbone angles (no
         structure sampling) — POST /inverse_fold {"record": {...},
         "n_samples": k}. "guidance_scale" here means the SEQUENCE
         sampler's CFG scale (the only sampler this endpoint runs)."""
-        t0 = time.monotonic()
         record = _record_from_json(payload)
         n = int(payload.get("n_samples", 1))
         if not 1 <= n <= 4 * self.engine.batch_size:
             raise ValueError(
                 f"n_samples must be in [1, {4 * self.engine.batch_size}]")
-        slot = self.engine.featurize(
-            record, seq_guidance_scale=payload.get("guidance_scale"))
+        request.attrs["slots"] = n
+        with telemetry.span("server.featurize"):
+            slot = self.engine.featurize(
+                record, seq_guidance_scale=payload.get("guidance_scale"))
         futures = self.if_batcher.submit_many([slot] * n)
         results = [f.result(timeout=self.request_timeout_s)
                    for f in futures]
@@ -176,7 +184,7 @@ class DesignServer:
                 d["recovery_rate"] = r.recovery_rate
             out.append(d)
         return {"sequences": out,
-                "latency_ms": 1e3 * (time.monotonic() - t0)}
+                "latency_ms": 1e3 * (time.monotonic() - request.t0)}
 
     def _make_handler(self):
         server = self
@@ -204,6 +212,9 @@ class DesignServer:
                 elif self.path == "/stats":
                     stats = server.batcher.stats()
                     stats["inverse_fold"] = server.if_batcher.stats()
+                    stats["graphs"] = server.engine.graphs.stats()
+                    stats["engine"] = server.engine.stats()
+                    stats["telemetry"] = telemetry.recorder().summary()
                     self._reply(200, stats)
                 elif self.path == "/config":
                     import dataclasses as dc
@@ -233,21 +244,27 @@ class DesignServer:
                 if handler is None:
                     self._reply(404, {"error": f"no route {self.path}"})
                     return
+                with telemetry.span("server.request",
+                                    route=self.path) as request:
+                    code, body, headers = self._answer(handler, request)
+                    request.attrs["status"] = code
+                    self._reply(code, body, headers)
+
+            def _answer(self, handler, request):
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                     payload = json.loads(self.rfile.read(length) or b"{}")
-                    self._reply(200, handler(payload))
+                    return 200, handler(payload, request), None
                 except QueueFullError as exc:
                     # overload backpressure: reject fast + retryable
                     # rather than queueing toward a slow timeout
-                    self._reply(429, {"error": str(exc),
-                                      "retry_after_s": exc.retry_after_s},
-                                headers={"Retry-After":
-                                         str(max(1, round(
-                                             exc.retry_after_s)))})
+                    return 429, {"error": str(exc),
+                                 "retry_after_s": exc.retry_after_s}, {
+                        "Retry-After": str(max(1, round(
+                            exc.retry_after_s)))}
                 except (ValueError, KeyError, TypeError) as exc:
-                    self._reply(400, {"error": str(exc)})
+                    return 400, {"error": str(exc)}, None
                 except Exception as exc:  # noqa: BLE001 — surface as 500
-                    self._reply(500, {"error": str(exc)})
+                    return 500, {"error": str(exc)}, None
 
         return Handler

@@ -12,11 +12,18 @@ them); a step that cannot be captured raises. On the CPU, and on a gloo
 mesh (whose collectives stage through the host and cannot be captured),
 both steps run eagerly. ``profile_dir`` profiles the train steps
 of one epoch (the second of the run, or its only one) and prints their
-digest (utils/profiling.py).
+digest (utils/profiling.py); the trainer's spans (utils/telemetry.py)
+land in it.
 
 On the trainer's mesh every rank runs the loop on its rows of each batch;
 the saves gather the whole state (``Trainer.full_state_dict``) and rank 0
 writes them, synchronously; a resume cuts the saved state to the mesh.
+
+Spans: ``train.eval`` over each validation pass and
+``train.checkpoint_wait`` over each epoch's saves; each epoch's record
+carries the seconds its steps waited for input (``data_wait_seconds``,
+the sum of its ``train.data_wait`` spans, data/prefetch.py) and the
+seconds of its saves (``ckpt_wait_seconds``).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 from e3diff_tpu_torch.data.prefetch import prefetch_to_device, to_device
 from e3diff_tpu_torch.sampling.graphs import WARMUP_CALLS
 from e3diff_tpu_torch.training.checkpoint import BestTracker, CheckpointManager
-from e3diff_tpu_torch.utils import profiling
+from e3diff_tpu_torch.utils import profiling, telemetry
 from e3diff_tpu_torch.utils.timing import profiler_trace
 
 
@@ -153,6 +160,7 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
         gemm_flops = 0.0
         t_epoch = time.perf_counter()
         t_first_done = None
+        waited = telemetry.recorder().total("train.data_wait")[1]
         with profiler_trace(profile_dir if epoch == profile_epoch
                             else None) as trace_path:
             for i, batch in enumerate(staged(train_batches(epoch))):
@@ -173,6 +181,7 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
                     "--batch_size or enlarge the dataset.")
             train_means = sums.means()   # waits for every step
         t_train_done = time.perf_counter()
+        waited = telemetry.recorder().total("train.data_wait")[1] - waited
         if trace_path is not None:
             log_profile_digest(trace_path, n_steps, log_fn,
                                gemm_flops if captured else None)
@@ -182,27 +191,30 @@ def train_loop(trainer, train_batches: Callable[[int], Iterable[dict]],
 
         val_means = {}
         if val_batches is not None:
-            val_sums = MetricSums()
-            for b in staged(val_batches()):
-                val_sums.add(eval_step(b))
-            val_means = val_sums.means()
+            with telemetry.span("train.eval"):
+                val_sums = MetricSums()
+                for b in staged(val_batches()):
+                    val_sums.add(eval_step(b))
+                val_means = val_sums.means()
             if val_means:
                 log_fn(f"Validation Loss:{val_means['val_loss']}")
 
         record = {"epoch": epoch, **train_means, **val_means,
                   "steps_per_sec": steps_per_sec,
+                  "data_wait_seconds": waited,
                   "epoch_seconds": time.perf_counter() - t_epoch}
         history.append(record)
 
         if manager is not None:
-            t_ckpt = time.perf_counter()
-            if val_means:
-                best.update(val_means, trainer.weights)
-            if (epoch + 1) % max(ckpt_every, 1) == 0 \
-                    or epoch == max_epochs - 1:
-                manager.save("last", {"trainer": trainer.full_state_dict(),
-                                      "epoch": epoch, "best": best.best})
-            record["ckpt_wait_seconds"] = time.perf_counter() - t_ckpt
+            with telemetry.span("train.checkpoint_wait") as saving:
+                if val_means:
+                    best.update(val_means, trainer.weights)
+                if (epoch + 1) % max(ckpt_every, 1) == 0 \
+                        or epoch == max_epochs - 1:
+                    manager.save("last", {
+                        "trainer": trainer.full_state_dict(),
+                        "epoch": epoch, "best": best.best})
+            record["ckpt_wait_seconds"] = saving.seconds
 
     for step in (*captured.values(), *evals.values()):
         step.close()

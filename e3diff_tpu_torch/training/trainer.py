@@ -14,6 +14,9 @@ loss is its share of the global loss, and the gradients and the metrics
 are summed over dp. The eval step runs the whole batch on every rank.
 Saves gather the tp shards (``full_state_dict``); a resume cuts a full
 state to the mesh (``load_full_state_dict``).
+
+A train step, eager or replayed, runs inside a ``train.step`` span
+(utils/telemetry.py), an eval step inside ``train.eval_step``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from e3diff_tpu_torch.training.optim import (
     accumulated_grads,
     ema_update,
 )
+from e3diff_tpu_torch.utils import telemetry
 from e3diff_tpu_torch.utils.profiling import count_gemm_flops
 
 
@@ -115,7 +119,8 @@ class Trainer:
         """One optimizer step; returns the step's metrics as 0-d tensors on
         the device (no host sync): the loss and its parts, and
         ``grad_norm``, the gradients' global norm before clipping."""
-        return self._step(self._with_draws(batch, draws))
+        with telemetry.span("train.step"):
+            return self._step(self._with_draws(batch, draws))
 
     def _step(self, batch: dict) -> dict:
         self.model.train()
@@ -154,12 +159,16 @@ class Trainer:
         finally:
             self.load_state_dict(saved)
 
-    @torch.no_grad()
     def eval_step(self, batch: dict, **draws) -> dict:
         """The validation metrics of one batch: eval mode (no dropout, no
         conditioning dropout), forward kernels only."""
+        with telemetry.span("train.eval_step"):
+            return self._eval(self._with_draws(batch, draws))
+
+    @torch.no_grad()
+    def _eval(self, batch: dict) -> dict:
         self.model.eval()
-        loss, aux = self._loss(self._with_draws(batch, draws))
+        loss, aux = self._loss(batch)
         return self._metrics("val", loss, aux)
 
     def capture_eval(self, batch: dict, *, pool=None,
@@ -288,7 +297,8 @@ class CapturedStep:
             fill_static(self.static[k], v)
         flops = []
 
-        run = trainer._step if train else trainer.eval_step
+        run = trainer._step if train else trainer._eval
+        self.span = "train.step" if train else "train.eval_step"
 
         def step():
             if flops:
@@ -300,7 +310,8 @@ class CapturedStep:
         with trainer.restored() if train else _generator_restored(
                 trainer.generator):
             self.call = CapturedCall(step, pool=pool, grad=train,
-                                     generators=(trainer.generator,))
+                                     generators=(trainer.generator,),
+                                     owner="train" if train else "eval")
         self.gemm_flops = flops[0]
         self.metrics = self.call.out
         self.launches = self.call.launches
@@ -309,13 +320,14 @@ class CapturedStep:
         if batch.keys() != self.static.keys():
             raise ValueError(f"captured for the keys {sorted(self.static)}, "
                              f"given {sorted(batch)}")
-        for k, v in batch.items():
-            if tuple(v.shape) != tuple(self.static[k].shape):
-                raise ValueError(f"{k}: captured for shape "
-                                 f"{tuple(self.static[k].shape)}, given "
-                                 f"{tuple(v.shape)}")
-            fill_static(self.static[k], v)
-        self.call.replay()
+        with telemetry.span(self.span):
+            for k, v in batch.items():
+                if tuple(v.shape) != tuple(self.static[k].shape):
+                    raise ValueError(f"{k}: captured for shape "
+                                     f"{tuple(self.static[k].shape)}, given "
+                                     f"{tuple(v.shape)}")
+                fill_static(self.static[k], v)
+            self.call.replay()
         return self.metrics
 
     def close(self) -> None:

@@ -10,7 +10,9 @@ graphs and buffers at once. Every graph of one cache is captured into one
 shared memory pool: programs run one at a time (the caller serialises
 them, as the design engine's device lock does), and each program writes
 every buffer it reads back before it reads it, so one program's
-temporaries may reuse what another's capture freed.
+temporaries may reuse what another's capture freed. ``stats()`` counts
+the lookups that hit, those that missed (each a capture by the caller)
+and the programs closed to make room or replaced.
 """
 
 from __future__ import annotations
@@ -32,10 +34,15 @@ class GraphCache:
         self._lock = threading.Lock()
         self._entries: OrderedDict = OrderedDict()
         self._pool = None
+        self._stats = {"hits": 0, "misses": 0, "evictions": 0}
 
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return dict(self._stats)
 
     def values(self) -> list:
         """The cached values, least recently used first."""
@@ -57,14 +64,13 @@ class GraphCache:
         identical to the one stored with it (else None)."""
         with self._lock:
             hit = self._entries.get(key)
-            if hit is None:
+            if hit is None or len(hit[0]) != len(pinned) or any(
+                    a is not b for a, b in zip(hit[0], pinned)):
+                self._stats["misses"] += 1
                 return None
-            stored_pinned, value = hit
-            if len(stored_pinned) != len(pinned) or any(
-                    a is not b for a, b in zip(stored_pinned, pinned)):
-                return None
+            self._stats["hits"] += 1
             self._entries.move_to_end(key)
-            return value
+            return hit[1]
 
     def put(self, key, value, *pinned):
         dropped = []
@@ -75,6 +81,7 @@ class GraphCache:
             self._entries[key] = (pinned, value)
             while len(self._entries) > self.maxsize:
                 dropped.append(self._entries.popitem(last=False)[1][1])
+            self._stats["evictions"] += len(dropped)
         for v in dropped:
             close = getattr(v, "close", None)
             if close is not None:
