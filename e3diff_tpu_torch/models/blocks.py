@@ -27,6 +27,13 @@ site. Training keeps f32 master weights and computes in the config's
 dtype, as the JAX ``bf16`` preset does; a Linear stored in bf16 or int8
 refuses to train.
 
+Each Linear and distance table reads its stored weights in the compute
+dtype (``_StoredWeights``): cast, or int8 dequantized, in every call; a
+sampler, whose weights stay as they are while it runs, keeps a
+``WeightImage``: inside its ``frozen()`` the f32 weights of a bf16 model
+are read from a compute image cast once, so that a captured decode step
+casts no weight.
+
 Built with a ``mesh`` (parallel/mesh.py), the blocks are Megatron-style
 tensor parallel over its tp ranks: an attention block whose heads divide
 by tp runs ``num_heads / tp`` heads per rank (column-parallel Q/K/V, a
@@ -44,6 +51,9 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import operator
+import threading
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +71,7 @@ from e3diff_tpu_torch.parallel.mesh import (
     reduce_from_tp,
     splits,
 )
+from e3diff_tpu_torch.utils import telemetry
 from e3diff_tpu_torch.utils.quant import dequantize
 
 
@@ -120,14 +131,144 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator):
             m.generator = generator
 
 
-class Linear(nn.Module):
+class _ThreadState(threading.local):
+    """This thread's sampling mode (``WeightImage.frozen``) and its
+    counts (``weight_reads``)."""
+
+    frozen = False
+    image_reads = 0
+    weight_casts = 0
+
+
+_THREAD = _ThreadState()
+
+
+def weight_reads() -> tuple[int, int]:
+    """This thread's counts so far: the calls of Linears and distance
+    tables that read their compute image, and those that converted their
+    stored weight (cast, or int8 dequantized). ``CapturedCall`` records
+    what its capture adds."""
+    return _THREAD.image_reads, _THREAD.weight_casts
+
+
+class _StoredWeights(nn.Module):
+    """The stored weights of a Linear or a distance table, read in the
+    compute dtype ``dtype``.
+
+    A call converts them from what is stored (int8 dequantized, then
+    cast), as flax's Dense promotes its params. Where the weight is stored
+    f32 and the compute dtype is bf16, a sampled model also keeps a
+    compute image: the tensors named in ``IMAGED`` cast once by
+    ``WeightImage.refresh`` (the same casts, so the same bits), held in a
+    plain attribute (no parameter, buffer or state_dict key), and read
+    inside ``WeightImage.frozen`` in place of the cast. bf16 storage needs
+    none (its weight's cast is none), int8 storage keeps the resident
+    weights int8 and dequantizes in every call, f32 compute casts
+    nothing."""
+
+    IMAGED: tuple[str, ...] = ("weight",)
+    _image: tuple | None = None
+
+    def _convert(self, mesh=None) -> tuple:
+        """The compute form, converted from the stored tensors now."""
+        raise NotImplementedError
+
+    def _weights(self, mesh=None) -> tuple:
+        """The compute form: the image inside ``WeightImage.frozen``, else
+        ``_convert``."""
+        if _THREAD.frozen and self._image is not None:
+            _THREAD.image_reads += 1
+            return self._image
+        if self.weight_scale is not None or self.weight.dtype != self.dtype:
+            _THREAD.weight_casts += 1
+        return self._convert(mesh)
+
+    def _wants_image(self) -> bool:
+        return (self.dtype == torch.bfloat16 and self.weight_scale is None
+                and self.weight.dtype == torch.float32)
+
+    def _write_image(self) -> tuple:
+        """Make the image anew and return its tensors (none, and the image
+        dropped, where none is wanted): into the old image's storage where
+        the shapes allow, so that programs captured over it read the new
+        values."""
+        if not self._wants_image():
+            self._image = None
+            return ()
+        fresh, old = self._convert(), self._image
+        if old is not None and all(o.shape == f.shape and o.device == f.device
+                                   for o, f in zip(old, fresh)):
+            for o, f in zip(old, fresh):
+                o.copy_(f)
+            fresh = old
+        self._image = fresh
+        return fresh
+
+
+class WeightImage:
+    """The compute images of a model's Linears and distance tables (found
+    when this is made), as a sampler keeps them: ``frozen()`` around its
+    captures and eager loops. Each sampler makes one
+    (sampling/structure.py, sampling/sequence.py); the trainer's train and
+    eval steps make none, and keep casting the f32 weights that AdamW
+    updates."""
+
+    def __init__(self, model: nn.Module):
+        self.modules = [m for m in model.modules()
+                        if isinstance(m, _StoredWeights)]
+        # the tensors the images were last made from: weak references,
+        # and their versions and addresses
+        self._refs: list = []
+        self._marks: list | None = None
+
+    def refresh(self) -> None:
+        """Bring the images up to date with the stored weights. Where
+        none of the tensors they copy has been replaced or written in
+        place (its version counter) since the last refresh, this is host
+        reads alone; else every image is made again (``load_state_dict``,
+        an optimizer step), into its old storage, and those no longer
+        wanted (weights stored bf16 or int8 since) are dropped, inside a
+        ``weights.image`` span (tensors, bytes)."""
+        sources = [m._parameters[n] for m in self.modules for n in m.IMAGED]
+        marks = [(t._version, t.data_ptr()) for t in sources]
+        if marks == self._marks and all(
+                map(operator.is_, (r() for r in self._refs), sources)):
+            return
+        if any(m._wants_image() or m._image is not None
+               for m in self.modules):
+            with torch.no_grad(), telemetry.span("weights.image") as span:
+                written = [t for m in self.modules for t in m._write_image()]
+                span.attrs.update(tensors=len(written),
+                                  bytes=sum(t.nbytes for t in written))
+        self._refs = [weakref.ref(t) for t in sources]
+        self._marks = marks
+
+    @contextlib.contextmanager
+    def frozen(self):
+        """Calls whose weights stay as they are, as a sampler's:
+        ``refresh``, then, on this thread, each Linear and distance table
+        with a compute image reads it in place of casting its weights. A
+        caller that replays a sampler's captured program itself, after
+        the weights changed, takes it from ``run.program(batch)`` again
+        first, which refreshes."""
+        self.refresh()
+        was, _THREAD.frozen = _THREAD.frozen, True
+        try:
+            yield
+        finally:
+            _THREAD.frozen = was
+
+
+class Linear(_StoredWeights):
     """y = x W^T + b in the compute dtype. ``weight`` is (out, in) and is
     stored f32, bf16, or int8 beside a per-output-channel ``weight_scale``;
     ``bias`` is stored f32, or bf16 in the full ``bf16`` mode
-    (utils/params_io.py::cast_inference_params). Both are cast to the
-    compute dtype here, as flax's Dense promotes its params."""
+    (utils/params_io.py::cast_inference_params). Both are read in the
+    compute dtype (``_StoredWeights``): cast in each call, or, inside a
+    sampler's ``WeightImage.frozen``, from the compute image."""
 
     QUANT_AXIS = -1  # the input axis of torch's (out, in) layout
+    IMAGED = ("weight", "bias")
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, device=None):
@@ -139,15 +280,23 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features, device=device))
         self.register_buffer("weight_scale", None)
 
-    def forward(self, x):
+    def _convert(self, mesh=None):
+        return (dequantize(self.weight, self.weight_scale).to(self.dtype),
+                self.bias.to(self.dtype))
+
+    def _check_trainable(self):
         if self.training and (self.weight_scale is not None
                               or self.weight.dtype != torch.float32):
             raise RuntimeError(
-                f"Linear({self.in_features}, {self.out_features}): weights "
-                f"stored as {self.weight.dtype} for inference do not train; "
-                "train f32 weights")
-        w = dequantize(self.weight, self.weight_scale).to(self.dtype)
-        return F.linear(x.to(self.dtype), w, self.bias.to(self.dtype))
+                f"{type(self).__name__}({self.in_features}, "
+                f"{self.out_features}): weights stored as "
+                f"{self.weight.dtype} for inference do not train; train f32 "
+                "weights")
+
+    def forward(self, x):
+        self._check_trainable()
+        w, b = self._weights()
+        return F.linear(x.to(self.dtype), w, b)
 
 
 class ColumnParallelLinear(Linear):
@@ -164,21 +313,21 @@ class RowParallelLinear(Linear):
     """A Linear whose input features are split over the mesh's tp ranks:
     this rank holds ``in / tp`` columns of the weight and the whole bias;
     the partial products are summed over ``tp_group`` in f32
-    (``reduce_from_tp``) and the bias is added once, after the sum."""
+    (``reduce_from_tp``) and the f32 bias is added once, after the sum."""
+
+    IMAGED = ("weight",)
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, device, mesh):
         super().__init__(in_features // mesh.tp, out_features, dtype, device)
         self.mesh = mesh
 
+    def _convert(self, mesh=None):
+        return (dequantize(self.weight, self.weight_scale).to(self.dtype),)
+
     def forward(self, x):
-        if self.training and (self.weight_scale is not None
-                              or self.weight.dtype != torch.float32):
-            raise RuntimeError(
-                f"RowParallelLinear({self.in_features}, {self.out_features}):"
-                f" weights stored as {self.weight.dtype} for inference do "
-                "not train; train f32 weights")
-        w = dequantize(self.weight, self.weight_scale).to(self.dtype)
+        self._check_trainable()
+        w, = self._weights()
         part = F.linear(x.to(self.dtype), w).float()
         y = reduce_from_tp(part, self.mesh) + self.bias.float()
         return y.to(self.dtype)
@@ -196,25 +345,31 @@ def _linear(in_features, out_features, dtype, device, mesh=None,
     return Linear(in_features, out_features, dtype, device)
 
 
-class DistanceEmbedding(nn.Module):
-    """HF relative_key distance table, (2*max_pos-1, head_dim)."""
+class DistanceEmbedding(_StoredWeights):
+    """HF relative_key distance table, (2*max_pos-1, head_dim), read in
+    the compute dtype ``dtype``."""
 
     QUANT_AXIS = -2  # the JAX package's axis for this 2-D leaf
 
-    def __init__(self, max_pos: int, head_dim: int, device=None):
+    def __init__(self, max_pos: int, head_dim: int, dtype: torch.dtype,
+                 device=None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(2 * max_pos - 1, head_dim, device=device))
         self.register_buffer("weight_scale", None)
 
-    def table(self, dtype, mesh=None):
-        """The table in ``dtype``; with a ``mesh``, entered into the tp
-        region before the cast, so that the heads' partial gradients are
-        summed over tp in f32."""
+    def _convert(self, mesh=None):
         w = dequantize(self.weight, self.weight_scale)
         if mesh is not None:
             w = copy_to_tp(w, mesh)
-        return w.to(dtype)
+        return (w.to(self.dtype),)
+
+    def table(self, mesh=None):
+        """The table in the compute dtype; with a ``mesh``, entered into
+        the tp region before the cast, so that the heads' partial
+        gradients are summed over tp in f32."""
+        return self._weights(mesh)[0]
 
 
 class LayerNorm(nn.Module):
@@ -255,7 +410,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = cfg.num_heads // mesh.tp if split else cfg.num_heads
         if relative and cfg.position_embedding_type == "relative_key":
             self.distance_embedding = DistanceEmbedding(
-                cfg.max_position_embeddings, cfg.head_dim, device)
+                cfg.max_position_embeddings, cfg.head_dim, cfg.dtype, device)
         else:
             self.distance_embedding = None
         self.generator: torch.Generator | None = None
@@ -289,7 +444,7 @@ class MultiHeadAttention(nn.Module):
         table = None
         if self.distance_embedding is not None:
             table = self.distance_embedding.table(
-                self.cfg.dtype, self.mesh if self.split else None)
+                self.mesh if self.split else None)
         return kernels.attention(
             self.query(xin), k, v, mask_add, table,
             num_heads=self.num_heads,

@@ -21,7 +21,12 @@ The kernels' launch counters (ops/kernels.py) move when a kernel is
 launched from Python: in the warm-up and at capture, never on replay. A
 capture records its own launches by kernel name in ``launches``. The
 warm-up and the capture run inside a ``graphs.capture`` span
-(utils/telemetry.py) whose ``owner`` names the captured call's user.
+(utils/telemetry.py) whose ``owner`` names the captured call's user, and
+whose ``image_reads`` and ``weight_casts`` count the Linear and distance
+table calls the capture recorded (on its thread) that read the weights'
+compute image and that cast or dequantized the stored weights
+(models/blocks.py::weight_reads): a sampler's capture of f32 weights in
+bf16 compute casts none, a train step's casts every one.
 
 A tensor-parallel model's NCCL all-reduces are captured with the rest of
 its call; a gloo mesh's collectives stage through the host and cannot
@@ -34,6 +39,7 @@ from typing import Callable
 
 import torch
 
+from e3diff_tpu_torch.models.blocks import weight_reads
 from e3diff_tpu_torch.ops import kernels
 from e3diff_tpu_torch.utils import telemetry
 
@@ -59,7 +65,7 @@ class CapturedCall:
     def __init__(self, fn: Callable, *, pool, reset: Callable | None = None,
                  grad: bool = False, generators: tuple = (),
                  owner: str = ""):
-        with telemetry.span("graphs.capture", owner=owner):
+        with telemetry.span("graphs.capture", owner=owner) as span:
             self.graph = torch.cuda.CUDAGraph()
             for gen in generators:
                 if not hasattr(self.graph, "register_generator_state"):
@@ -78,11 +84,13 @@ class CapturedCall:
                         reset()
                     fn()
             torch.cuda.current_stream().wait_stream(side)
-            before = _launch_counts()
+            before, reads = _launch_counts(), weight_reads()
             with torch.set_grad_enabled(grad), capture:
                 self.out = fn()
             after = _launch_counts()
             self.launches = {k: after[k] - before[k] for k in after}
+            span.attrs["image_reads"], span.attrs["weight_casts"] = (
+                now - was for now, was in zip(weight_reads(), reads))
 
     def replay(self) -> None:
         self.graph.replay()

@@ -23,6 +23,10 @@ on ``state.x``, and ``final.replay()`` writes the s = 0 logits to
 ``final.out``. ``run`` is ``load``, every step and the final forward, the
 same bits.
 
+Each sampler keeps a ``WeightImage`` of its model (models/blocks.py),
+and each of its calls and captures runs inside its ``frozen()``, as in
+sampling/structure.py.
+
 Each sampler call runs inside a ``sequence.run`` span (utils/telemetry.py)
 with its CUDA time on the card (``captured`` when the call captured its
 bucket's program).
@@ -41,6 +45,7 @@ from e3diff_tpu_torch.diffusion.guidance import (
     concat_cond_uncond,
     guided_combine,
 )
+from e3diff_tpu_torch.models.blocks import WeightImage
 from e3diff_tpu_torch.sampling.graphs import (
     CapturedCall,
     check_capturable,
@@ -183,6 +188,7 @@ def make_sequence_sampler(model, d3pm: D3PMDiffusion, *, diverse: bool = True,
     check_capturable(mesh, graphs)
     if graphs and cache is None:
         cache = GraphCache()
+    image = WeightImage(model)
     flags = ("sequence", diverse, n_steps, guided)
 
     def cached(batch) -> tuple[SequenceProgram, bool]:
@@ -206,7 +212,7 @@ def make_sequence_sampler(model, d3pm: D3PMDiffusion, *, diverse: bool = True,
         lig = batch["ligand_seq"]
         bucket = (*lig.shape[:2], batch["receptor_seq"].shape[1])
         with telemetry.span("sequence.run", device=device.type == "cuda",
-                            bucket=bucket) as span:
+                            bucket=bucket) as span, image.frozen():
             if noise is None:
                 n = lig.shape[0]
                 r0, rows = (0, n) if mesh is None else mesh.rows(n)
@@ -232,7 +238,11 @@ def make_sequence_sampler(model, d3pm: D3PMDiffusion, *, diverse: bool = True,
                 gumbel=None if gumbel is None else gumbel.to(device),
                 diverse=diverse, n_steps=n_steps)
 
-    run.program = lambda batch: cached(batch)[0]
+    def program(batch) -> SequenceProgram:
+        with image.frozen():
+            return cached(batch)[0]
+
+    run.program = program
     return run
 
 

@@ -20,6 +20,12 @@ draws what one device would. NCCL's collectives are captured in the
 graphs; a gloo mesh's cannot be, and there the sampler runs with
 ``eager=True``.
 
+Each sampler keeps a ``WeightImage`` of its model (models/blocks.py), and
+each of its calls and captures runs inside its ``frozen()``: a model of
+f32 weights and bf16 compute reads its Linears' and tables' bf16 compute
+image, cast once and made again in place when the weights change, so that
+a captured step casts no weight.
+
 Each sampler call runs inside a ``structure.run`` span (utils/telemetry.py)
 with its CUDA time on the card: the draws, the copies into the static
 buffers and the replays enqueued (``captured`` when the call captured its
@@ -37,6 +43,7 @@ import torch
 from e3diff_tpu_torch.data.dataset import strip_meta
 from e3diff_tpu_torch.diffusion.gaussian import GaussianAngleDiffusion
 from e3diff_tpu_torch.diffusion.guidance import guided_combine, null_receptor
+from e3diff_tpu_torch.models.blocks import WeightImage
 from e3diff_tpu_torch.sampling.graphs import (
     CapturedCall,
     check_capturable,
@@ -175,6 +182,7 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
     check_capturable(mesh, graphs)
     if graphs and cache is None:
         cache = GraphCache()
+    image = WeightImage(model)
     flags = ("structure", step, return_trajectory, str(trajectory_dtype),
              sampler, ddim_steps, float(ddim_eta), guided)
 
@@ -200,7 +208,7 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
         lig = batch["ligand_angles"]
         bucket = (*lig.shape[:2], batch["receptor_seq"].shape[1])
         with telemetry.span("structure.run", device=device.type == "cuda",
-                            bucket=bucket) as span:
+                            bucket=bucket) as span, image.frozen():
             if noise is None:
                 n = lig.shape[0]
                 r0, rows = (0, n) if mesh is None else mesh.rows(n)
@@ -226,7 +234,11 @@ def make_structure_sampler(model, diffusion: GaussianAngleDiffusion, *,
             return diffusion.sample_loop(denoise_fn, x_init.to(device),
                                          step=step, **kw)
 
-    run.program = lambda batch: cached(batch)[0]
+    def program(batch) -> StructureProgram:
+        with image.frozen():
+            return cached(batch)[0]
+
+    run.program = program
     return run
 
 

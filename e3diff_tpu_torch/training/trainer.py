@@ -282,7 +282,8 @@ class CapturedStep:
     next step. ``launches``: the kernels' launches at the capture, by
     name. ``gemm_flops``: the GEMMs' operations in a step, counted in the
     first warm-up call (utils/profiling.py::count_gemm_flops), for the
-    digest of replays."""
+    digest of replays. ``writes``: the weights a train replay updates in
+    place; each replay moves their version counters."""
 
     def __init__(self, trainer: Trainer, batch: dict, *, pool=None,
                  train: bool = True):
@@ -313,6 +314,7 @@ class CapturedStep:
                                      generators=(trainer.generator,),
                                      owner="train" if train else "eval")
         self.gemm_flops = flops[0]
+        self.writes = trainer.optimizer.params if train else []
         self.metrics = self.call.out
         self.launches = self.call.launches
 
@@ -328,6 +330,12 @@ class CapturedStep:
                                      f"{tuple(v.shape)}")
                 fill_static(self.static[k], v)
             self.call.replay()
+            if self.writes:
+                # the replay wrote the weights where autograd's version
+                # counters cannot see it: move them, as an eager step's
+                # in-place update does (a sampler's compute image reads
+                # them, models/blocks.py::WeightImage)
+                torch.autograd.graph.increment_version(self.writes)
         return self.metrics
 
     def close(self) -> None:
