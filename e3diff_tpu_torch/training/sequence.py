@@ -86,6 +86,7 @@ class SequenceTrainer(Trainer):
 
     diffusion: D3PMDiffusion
     INJECTED = ("t_int", "gumbel", "cond_drop")
+    MODEL = "sequence"
 
     def _loss(self, batch):
         lig = batch["ligand_seq"]

@@ -63,6 +63,7 @@ class StructureTrainer(Trainer):
 
     diffusion: GaussianAngleDiffusion
     INJECTED = ("t", "noise", "cond_drop")
+    MODEL = "structure"
 
     def _loss(self, batch):
         x0 = batch["ligand_angles"]

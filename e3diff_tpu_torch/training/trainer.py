@@ -16,7 +16,9 @@ Saves gather the tp shards (``full_state_dict``); a resume cuts a full
 state to the mesh (``load_full_state_dict``).
 
 A train step, eager or replayed, runs inside a ``train.step`` span
-(utils/telemetry.py), an eval step inside ``train.eval_step``.
+(utils/telemetry.py), an eval step inside ``train.eval_step``; each
+names its model (``model``: the trainer's ``MODEL``) and, where the model
+is on a card, times the card too.
 """
 
 from __future__ import annotations
@@ -59,9 +61,11 @@ class Trainer:
 
     Subclasses define ``_loss(batch) -> (loss, aux dict)``, the names of
     the draws a caller may inject (``INJECTED``; on a mesh, the rank's
-    rows of them) and ``_metrics``."""
+    rows of them), ``_metrics`` and the model their steps' spans name
+    (``MODEL``)."""
 
     INJECTED: tuple[str, ...] = ()
+    MODEL = ""
 
     def __init__(self, model: nn.Module, diffusion, optimizer: AdamW, *,
                  ema_decay: float = 0.0, accum_steps: int = 1,
@@ -119,8 +123,12 @@ class Trainer:
         """One optimizer step; returns the step's metrics as 0-d tensors on
         the device (no host sync): the loss and its parts, and
         ``grad_norm``, the gradients' global norm before clipping."""
-        with telemetry.span("train.step"):
+        with self._span("train.step"):
             return self._step(self._with_draws(batch, draws))
+
+    def _span(self, name: str):
+        return telemetry.span(name, model=self.MODEL,
+                              device=self.optimizer.params[0].is_cuda)
 
     def _step(self, batch: dict) -> dict:
         self.model.train()
@@ -162,7 +170,7 @@ class Trainer:
     def eval_step(self, batch: dict, **draws) -> dict:
         """The validation metrics of one batch: eval mode (no dropout, no
         conditioning dropout), forward kernels only."""
-        with telemetry.span("train.eval_step"):
+        with self._span("train.eval_step"):
             return self._eval(self._with_draws(batch, draws))
 
     @torch.no_grad()
@@ -299,7 +307,8 @@ class CapturedStep:
         flops = []
 
         run = trainer._step if train else trainer._eval
-        self.span = "train.step" if train else "train.eval_step"
+        self.name = "train.step" if train else "train.eval_step"
+        self.span = trainer._span
 
         def step():
             if flops:
@@ -322,7 +331,7 @@ class CapturedStep:
         if batch.keys() != self.static.keys():
             raise ValueError(f"captured for the keys {sorted(self.static)}, "
                              f"given {sorted(batch)}")
-        with telemetry.span(self.span):
+        with self.span(self.name):
             for k, v in batch.items():
                 if tuple(v.shape) != tuple(self.static[k].shape):
                     raise ValueError(f"{k}: captured for shape "

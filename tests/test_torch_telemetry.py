@@ -257,6 +257,37 @@ def test_the_loop_record_reads_its_spans(rec, tmp_path):
     assert saving.t0 >= evaluation.t1
 
 
+@pytest.mark.parametrize("kind", ["structure", "sequence"])
+def test_a_train_step_span_names_its_model(rec, kind):
+    """Each trainer's train step (captured on a card, eager on the CPU)
+    runs in a ``train.step`` span naming its model, with the card's time
+    where there is a card."""
+    from e3diff_tpu_torch.data import LigandBindingSiteData, synthetic_complexes
+    from e3diff_tpu_torch.data.prefetch import to_device
+    from e3diff_tpu_torch.training.run import PRESETS, build_trainer
+
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    cfg = PRESETS[kind](hidden_size=32, num_heads=4, num_hidden_layers=1,
+                        intermediate_size=64, max_seq_len=64, bf16=False)
+    trainer = build_trainer(kind, cfg, dev, steps_per_epoch=1)
+    ds = LigandBindingSiteData(synthetic_complexes(n=4), None,
+                               cfg.max_seq_len, cfg.pocket_ext)
+    batch = to_device(next(ds.batches(4)), dev)
+    step = trainer.capture(batch) if dev.type == "cuda" else trainer.train_step
+    step(batch)
+    (span,) = rec.spans("train.step")
+    assert span.attrs["model"] == kind == trainer.MODEL
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        assert span.device_ms > 0
+        step.close()
+    else:
+        assert span.device_ms is None
+    trainer.eval_step(batch)
+    (span,) = rec.spans("train.eval_step")
+    assert span.attrs["model"] == kind
+
+
 def test_graph_cache_counts_hits_misses_and_evictions():
     closed = []
 
