@@ -109,8 +109,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    from the same seed, every draw from the trainer's generator -- losses,
    grad norms, weights, moments and count equal bit for bit (on a
    difference, the same comparison at dropout 0 with the draws injected
-   says whether the draws make it); the launches at capture (one step's)
-   and, by kernel name in a utils/timing.py::profiler_trace, per replay;
+   says whether the draws make it); the launches at capture (one step's,
+   the optimizer's one fused update among them, as every train step of
+   phases 9, 12 and 13 is held to) and, by kernel name in a
+   utils/timing.py::profiler_trace, per replay;
    ms per step (median of 18 after 2), samples/s, max_memory_allocated,
    the device idle share and the utils/profiling.py digest of 3 profiled
    steps, eager and captured; 2 captured steps with accum_steps 2,
@@ -132,6 +134,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    and a train step, captured against eager, every metric, epoch mean
    and the final state with the generator's bit for bit; eval ms a batch
    eager and captured, and the number of eval graphs (one shape: one);
+   (i) clipping and AdamW in one pass (ops/kernels.py::adamw_update): 3
+   updates through the kernel against the plain chain from equal states,
+   p, mu, nu and count bit for bit after each, at both trainers'
+   parameter lists (mu f32 and bf16, weight decay 0.1 and 0, the clip
+   taken, left, taken), on an edge list with gradients viewed out of one
+   flat buffer and on 1100 small tensors (two launches); the kernel's
+   device ms a call at both lists beside its bound (28 bytes an element
+   over 3.35 TB/s), the plain chain's and torch.optim.AdamW(fused=True)'s
+   (its rows in the kernels' record); a captured structure train step's
+   graphs.capture span reads adamw_launches 1 or more, the capture's
+   launches of the kernel;
 13. multi-device on one card, the ranks spawned onto cuda:0 with seeded
    full-width weights: (a) dp=2 over gloo, 3 eager structure train steps
    at the preset (B=64, 32 a rank, length 128, bf16, dropout 0.1) against
@@ -159,8 +172,8 @@ capture included), phase 10's server (its warmup's captures and 40
 requests), phase 9's eager train steps and phase 12's captured ones
 (each capture with its warm-up steps; replays launch nothing from
 Python), phase 12 (g)'s remat runs and (h)'s eval runs, and phase 13's
-ranks' train steps, tp samplers and engine; phases 6.2 and 11 check
-their own launches and add none.
+ranks' train steps, tp samplers and engine; phases 6.2, 11 and 12 (i)
+check their own launches and add none.
 
 Usage, from the root of a checkout:
     python3 chip_smoke.py              # what the checks above need
@@ -1137,6 +1150,14 @@ def main(argv=None) -> int:
         train_counts[k] += n
     eval_numbers["phase"] = time.perf_counter() - t1
     print(f"  phase 12 (h) took {eval_numbers['phase']:.1f} s")
+    t1 = time.perf_counter()
+    phase("12 (i). clipping and AdamW in one pass: the kernel against the "
+          "plain chain bit for bit at both train lists, its times, a "
+          "captured step's adamw_launches")
+    adamw_numbers, adamw_rows = adamw_phase(torch, kernels, gen)
+    record += adamw_rows
+    adamw_numbers["phase"] = time.perf_counter() - t1
+    print(f"  phase 12 (i) took {adamw_numbers['phase']:.1f} s")
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     # 13 --------------------------------------------------------------
@@ -1172,6 +1193,7 @@ def main(argv=None) -> int:
     print(f"trajectory and host copies: {json.dumps(traj_numbers)}")
     print(f"remat: {json.dumps(remat_numbers)}")
     print(f"eval steps: {json.dumps(eval_numbers)}")
+    print(f"fused AdamW: {json.dumps(adamw_numbers)}")
     print(f"multi-device: {json.dumps(par_numbers)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
@@ -2421,10 +2443,10 @@ def time_training_kernels(torch, kernels, gen, errs) -> list[dict]:
     return record
 
 
-# exact launches of one train step: every attention core and LayerNorm of
-# the forward (phases 6 and 8 count the same calls) through the training
-# forward kernels, then each one's backward kernel; an eval step launches
-# the inference kernels alone
+# exact launches of one forward and backward of a train step: every
+# attention core and LayerNorm of the forward (phases 6 and 8 count the
+# same calls) through the training forward kernels, then each one's
+# backward kernel; an eval step launches the inference kernels alone
 PER_TRAIN_STEP = {
     "structure": {"fused_attention_train": 38, "fused_layernorm": 70,
                   "attention_backward": 38, "layernorm_backward": 70},
@@ -2432,6 +2454,10 @@ PER_TRAIN_STEP = {
                  "attention_backward": 15, "layernorm_backward": 32}}
 PER_EVAL_STEP = {"structure": {"fused_attention": 38, "fused_layernorm": 70},
                  "sequence": {"fused_attention": 15, "fused_layernorm": 32}}
+# and one optimizer update a step, whatever its microbatches: clipping and
+# AdamW in one launch (ops/kernels.py::adamw_update; both models' lists
+# fit one launch's tensor table)
+PER_UPDATE = {"adamw_update": 1}
 TRAIN_STEPS = 20
 TRAIN_WARMUP = 2            # steps left out of the step-time median
 # One step through the kernels against the same step through the plain
@@ -2453,6 +2479,15 @@ TRAIN_WARMUP = 2            # steps left out of the step-time median
 TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 F32_GRAD_TOL = 1e-3
 BF16_GRAD_FACTOR, BF16_GRAD_SLACK = 2.0, 1e-3
+
+
+def train_step_launches(kind, accum: int = 1,
+                        extra: dict[str, int] | None = None) -> dict[str, int]:
+    """One train step's launches: ``accum`` forwards and backwards (each
+    with the ``extra`` launches of remat), then one update."""
+    extra = extra or {}
+    return {**{k: accum * (n + extra.get(k, 0))
+               for k, n in PER_TRAIN_STEP[kind].items()}, **PER_UPDATE}
 
 
 def kernel_split(torch, fn, n: int) -> dict[str, float]:
@@ -2631,7 +2666,7 @@ def trainer_phase(torch, kernels, kind, gen) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         counts = launch_counts(kernels)
-        check(counts == with_zeros(kernels, PER_TRAIN_STEP[kind]),
+        check(counts == with_zeros(kernels, train_step_launches(kind)),
               f"{kind} train step: launches {counts}")
         for k, n in counts.items():
             totals[k] += n
@@ -2652,7 +2687,7 @@ def trainer_phase(torch, kernels, kind, gen) -> tuple[dict, dict]:
           f"{[round(x, 4) for x in losses]}", flush=True)
     print(f"  grad_norm {[round(x, 3) for x in norms]}; val_loss "
           f"{v['val_loss'].item():.4f}; launches per train step "
-          f"{PER_TRAIN_STEP[kind]}, per eval step {PER_EVAL_STEP[kind]}")
+          f"{train_step_launches(kind)}, per eval step {PER_EVAL_STEP[kind]}")
     print(f"  {kind} train step: {step_s * 1e3:.1f} ms (median of "
           f"{TRAIN_STEPS - TRAIN_WARMUP} after {TRAIN_WARMUP} warm-up; "
           f"first {secs[0] * 1e3:.1f} ms), {TRAIN_B / step_s:.1f} samples/s,"
@@ -2665,7 +2700,7 @@ def trainer_phase(torch, kernels, kind, gen) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
 
     # one step with two interleaved microbatches, conditioning dropout and
-    # an EMA: twice a step's launches
+    # an EMA: twice a forward and backward's launches, one update
     trainer = build_trainer(kind, dataclasses.replace(
         cfg, accum_steps=2, cond_dropout=0.1, ema_decay=0.999), "cuda", 1)
     kernels.reset_launch_counts()
@@ -2674,9 +2709,8 @@ def trainer_phase(torch, kernels, kind, gen) -> tuple[dict, dict]:
     print(f"  {kind} step with accum_steps 2, cond_dropout 0.1, EMA: loss "
           f"{m['train_loss'].item():.4f}, grad_norm "
           f"{m['grad_norm'].item():.3f}, launches {counts}", flush=True)
-    check(counts == with_zeros(kernels, {
-        k: 2 * n for k, n in PER_TRAIN_STEP[kind].items()}),
-        f"{kind} accumulated step: launches {counts}")
+    check(counts == with_zeros(kernels, train_step_launches(kind, 2)),
+          f"{kind} accumulated step: launches {counts}")
     check(all(math.isfinite(x.item()) for x in m.values()),
           f"{kind} accumulated step: not finite")
     del trainer
@@ -2787,7 +2821,11 @@ TRAIN_KERNEL_OF = {
     "layernorm_any_kernel": "fused_layernorm",
     "layernorm_bwd_vec_kernel": "layernorm_backward",
     "layernorm_bwd_any_kernel": "layernorm_backward",
+    "adamw_kernel": "adamw_update",
 }
+# utils/profiling.py's PORT_KERNEL names the models' kernels; the
+# optimizer's is looked for here
+ADAMW_KERNEL = re.compile(r"\b(adamw_kernel)\b")
 
 
 def train_capture_launches(kernels, kind, accum: int = 1) -> dict[str, int]:
@@ -2795,8 +2833,9 @@ def train_capture_launches(kernels, kind, accum: int = 1) -> dict[str, int]:
     and the step under capture, each ``accum`` microbatches."""
     from e3diff_tpu_torch.sampling.graphs import WARMUP_CALLS
 
-    return with_zeros(kernels, {k: (WARMUP_CALLS + 1) * accum * n
-                                for k, n in PER_TRAIN_STEP[kind].items()})
+    return with_zeros(kernels, {
+        k: (WARMUP_CALLS + 1) * n
+        for k, n in train_step_launches(kind, accum).items()})
 
 
 def eval_capture_launches(kernels, kind) -> dict[str, int]:
@@ -2813,9 +2852,9 @@ def trace_train_kernels(trace, steps: int) -> dict[str, float]:
     step."""
     from e3diff_tpu_torch.utils import profiling
 
-    counts = dict.fromkeys(PER_TRAIN_STEP["structure"], 0.0)
+    counts = dict.fromkeys(train_step_launches("structure"), 0.0)
     for name, info in profiling.device_op_totals(trace).items():
-        m = profiling.PORT_KERNEL.search(name)
+        m = profiling.PORT_KERNEL.search(name) or ADAMW_KERNEL.search(name)
         if m and m.group(1) in TRAIN_KERNEL_OF:
             counts[TRAIN_KERNEL_OF[m.group(1)]] += info["count"] / steps
     return counts
@@ -2952,8 +2991,7 @@ def check_capture(kernels, kind, r, accum: int = 1):
     """The capture launched one step's kernels (``accum`` microbatches),
     and with its warm-up steps and the replays, as many again
     WARMUP_CALLS times: replays launch nothing from Python."""
-    want = with_zeros(kernels, {k: accum * v
-                                for k, v in PER_TRAIN_STEP[kind].items()})
+    want = with_zeros(kernels, train_step_launches(kind, accum))
     check(r["launches"] == want, f"{kind}: the capture launched "
           f"{r['launches']}, not {want}")
     check(r["counts"] == train_capture_launches(kernels, kind, accum),
@@ -3013,7 +3051,8 @@ def captured_train_phase(torch, kernels, kind, gen, out: Path):
     check_capture(kernels, kind, cap)
     check(all(math.isfinite(x) for x in cap["losses"] + cap["norms"]),
           f"{kind}: a loss or grad norm is not finite")
-    want = {k: float(PER_TRAIN_STEP[kind].get(k, 0)) for k in cap["ran"]}
+    want = {k: float(train_step_launches(kind).get(k, 0))
+            for k in cap["ran"]}
     print(f"  {kind}: a profiled replay ran {cap['ran']} (captured "
           f"{ {k: v for k, v in cap['launches'].items() if v} })",
           flush=True)
@@ -3179,7 +3218,7 @@ def remat_phase(torch, kernels, gen, card) -> tuple[dict, dict]:
     many replays of its captured step at remat none, layer and dots: every
     run's losses, grad norms, weights, moments, count and generator state
     equal the eager none run's bit for bit; each remat step's launches
-    against PER_TRAIN_STEP plus ``remat_extra``; ms a step and
+    against train_step_launches with ``remat_extra``; ms a step and
     max_memory_allocated of each. Then one sequence-trainer step at
     layer against none, bit for bit. Returns the launches of these runs
     and the numbers."""
@@ -3208,8 +3247,8 @@ def remat_phase(torch, kernels, gen, card) -> tuple[dict, dict]:
         for remat in ("none", "layer", "dots") if kind == "structure" \
                 else ("none", "layer"):
             c = dataclasses.replace(cfg, remat=remat)
-            step = {k: v + (extra.get(k, 0) if remat != "none" else 0)
-                    for k, v in PER_TRAIN_STEP[kind].items()}
+            step = train_step_launches(
+                kind, extra=extra if remat != "none" else None)
             for mode in modes:
                 kernels.reset_launch_counts()
                 r = train_run(torch, kernels, lambda: build_trainer(
@@ -3348,7 +3387,7 @@ def eval_capture_phase(torch, kernels, gen, card) -> tuple[dict, dict]:
             counts = launch_counts(kernels)
             total = sum_counts(total, counts)
             if mode == "eager":   # 2 train steps, 2 passes of eval steps
-                want = {k: 2 * PER_TRAIN_STEP[kind].get(k, 0)
+                want = {k: 2 * train_step_launches(kind).get(k, 0)
                         + 2 * len(val) * PER_EVAL_STEP[kind].get(k, 0)
                         for k in counts}
             else:   # the captures with their warm-ups; replays launch none
@@ -3395,6 +3434,232 @@ def eval_capture_phase(torch, kernels, gen, card) -> tuple[dict, dict]:
               f"train loss {c['train'][1]['train_loss']:.6f})", flush=True)
     print(f"  {card}")
     return total, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 12 (i): clipping and AdamW in one pass
+# ---------------------------------------------------------------------------
+
+# the gradients' global norm at each of a case's updates, against
+# grad_clip 1: the clip taken, left, taken
+ADAMW_NORMS = (5.0, 0.5, 5.0)
+ADAMW_CASES = [(mu, wd) for mu in ("f32", "bf16") for wd in (0.1, 0.0)]
+# an edge list: tails off the kernel's 4-wide vectors and off a chunk
+# (ops/kernels.py::ADAMW_CHUNK, 4096),
+# and more tensors than one launch takes (small ones)
+ADAMW_EDGE_SIZES = [1, 3, 768, 768 * 1024, 2 * 4096 + 5]
+ADAMW_MANY = 1100
+# bytes an element: read g, p, mu, nu, write p, mu, nu (f32 mu)
+ADAMW_BYTES = 28
+
+
+def adamw_param_shapes(torch, kind) -> list[tuple]:
+    """The shapes of the ``kind`` trainer's parameters at its preset (the
+    train cells' lists)."""
+    from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils.presets import (
+        sequence_train_config,
+        structure_train_config,
+    )
+
+    preset = (structure_train_config if kind == "structure"
+              else sequence_train_config)
+    trainer = build_trainer(kind, preset(max_epochs=1), "cuda", 1)
+    shapes = [tuple(p.shape) for p in trainer.optimizer.params]
+    del trainer
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def adamw_pair(torch, shapes, mu_dtype: str, weight_decay: float, gen):
+    """Two AdamW (grad_clip 1, lr 5e-5 from the first step) over equal
+    copies of seeded parameters of ``shapes``."""
+    from e3diff_tpu_torch.training.optim import AdamW
+
+    base = [torch.randn(s, generator=gen, device="cuda") * 0.02
+            for s in shapes]
+    return [AdamW({str(i): t.clone() for i, t in enumerate(base)},
+                  base_lr=5e-5, weight_decay=weight_decay, max_epochs=1,
+                  steps_per_epoch=1000, grad_clip=1.0, mu_dtype=mu_dtype)
+            for _ in range(2)]
+
+
+def adamw_grads(torch, shapes, norm: float, gen, flat: bool = False):
+    """Seeded gradients of ``shapes`` scaled to the global ``norm``;
+    ``flat``: views of one buffer, as a dp all-reduce returns them (not
+    16-byte aligned after a size off the 4-wide vectors)."""
+    from e3diff_tpu_torch.training.optim import global_norm
+
+    sizes = [math.prod(s) for s in shapes]
+    if flat:
+        buf = torch.randn(sum(sizes), generator=gen, device="cuda")
+        grads = [v.view(s) for v, s in zip(buf.split(sizes), shapes)]
+    else:
+        grads = [torch.randn(s, generator=gen, device="cuda")
+                 for s in shapes]
+    torch._foreach_mul_(grads, norm / float(global_norm(grads)))
+    return grads
+
+
+def adamw_plain_step(kernels, opt, grads):
+    """``opt.step(grads)`` through the plain chain."""
+    from e3diff_tpu_torch.training.optim import global_norm
+
+    norm = global_norm(grads)
+    kernels.adamw_update_plain(
+        opt.params, grads, opt.mu, opt.nu, norm, opt.table, opt.count,
+        grad_clip=opt.grad_clip, b1=opt.b1, b2=opt.b2, eps=opt.eps,
+        weight_decay=opt.weight_decay)
+    return norm
+
+
+def adamw_against_plain(torch, kernels, label, shapes, mu_dtype, wd, gen,
+                        flat: bool = False) -> list[str]:
+    """len(ADAMW_NORMS) updates through the kernel and through the plain
+    chain from equal states and gradients: p, mu, nu and count held equal
+    bit for bit after every update. Returns what differed."""
+    fused, plain = adamw_pair(torch, shapes, mu_dtype, wd, gen)
+    before = kernels.adamw_update.launches
+    differ = []
+    for k, target in enumerate(ADAMW_NORMS):
+        grads = adamw_grads(torch, shapes, target, gen, flat)
+        norm = fused.step(grads)
+        check(torch.equal(norm, adamw_plain_step(kernels, plain, grads)),
+              f"{label}: the global norms differ")
+        for name in ("params", "mu", "nu"):
+            bad = [i for i, (x, y) in enumerate(zip(getattr(fused, name),
+                                                    getattr(plain, name)))
+                   if not torch.equal(x, y)]
+            if bad:
+                x, y = (getattr(o, name)[bad[0]].float() for o in (fused,
+                                                                   plain))
+                differ.append(
+                    f"update {k + 1}: {name} of {len(bad)} tensors, first "
+                    f"{tuple(x.shape)}: {int((x != y).sum())} values, max "
+                    f"|diff| {float((x - y).abs().max()):.3e}")
+        if not torch.equal(fused.count, plain.count):
+            differ.append(f"update {k + 1}: count")
+        if differ:
+            break
+    torch.cuda.synchronize()
+    n = sum(math.prod(s) for s in shapes)
+    print(f"  {label}, mu {mu_dtype}, weight decay {wd}, norms "
+          f"{ADAMW_NORMS}{', flat gradients' if flat else ''}: "
+          f"{len(shapes)} tensors, {n:,} values, "
+          f"{kernels.adamw_update.launches - before} launches: "
+          f"{'; '.join(differ) or 'p, mu, nu and count equal bit for bit'}",
+          flush=True)
+    return [f"{label} {mu_dtype} {wd}: {d}" for d in differ]
+
+
+def adamw_timing(torch, kernels, label, shapes, gen) -> dict:
+    """Device ms a call of the kernel, of the plain chain and of
+    torch.optim.AdamW(fused=True) (the library yardstick, no clipping),
+    f32 mu, weight decay 0.1, the clip taken; and the kernel's bound: its
+    row of the kernels line."""
+    fused, plain = adamw_pair(torch, shapes, "f32", 0.1, gen)
+    grads = adamw_grads(torch, shapes, 5.0, gen)
+    norm = fused.step(grads)
+    kw = dict(grad_clip=1.0, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1)
+
+    def kernel_call():
+        kernels.adamw_update(fused.params, grads, fused.mu, fused.nu, norm,
+                             fused.table, fused.count, **kw)
+
+    def plain_call():
+        kernels.adamw_update_plain(plain.params, grads, plain.mu, plain.nu,
+                                   norm, plain.table, plain.count, **kw)
+
+    ms, host_ms = time_call(torch, kernel_call, 20)
+    # the chain enqueues hundreds of launches a call: few calls suffice
+    plain_ms, _ = time_call(torch, plain_call, 2, reps=3)
+    del plain
+    torch.cuda.empty_cache()
+    lib_params = [torch.nn.Parameter(p.detach().clone())
+                  for p in fused.params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=5e-5, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.1, fused=True)
+    lib_ms, _ = time_call(torch, lib.step, 20)
+    n = sum(math.prod(s) for s in shapes)
+    bound_ms, bound_by = bound(n * ADAMW_BYTES, 0, "bfloat16")
+    print(f"  {label}: {len(shapes)} tensors, {n:,} values: kernel "
+          f"{ms:.4f} ms a call (enqueue {host_ms:.3f} ms), bound "
+          f"{bound_ms:.4f} ms ({n * ADAMW_BYTES / 1e9:.3f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {100 * bound_ms / ms:.1f}%), "
+          f"plain chain {plain_ms:.4f} ms, torch.optim.AdamW(fused=True) "
+          f"{lib_ms:.4f} ms", flush=True)
+    # the kernels line's row; main() sums its launches over the trainers'
+    # runs, and the kernel equals the chain bit for bit (max_abs_err 0)
+    return dict(
+        name="adamw_update", route="cuda",
+        source="e3diff_tpu_torch/csrc/adamw.cu", replaces=None, launches=0,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms,
+        shape=f"{label} list, {len(shapes)} tensors, {n} values, f32 mu, "
+              f"weight decay 0.1, clipped", host_ms=host_ms)
+
+
+def adamw_capture_check(torch, kernels, gen) -> int:
+    """A captured structure train step at its preset: the adamw_launches
+    of its graphs.capture span, which are the capture's launches of the
+    kernel."""
+    from e3diff_tpu_torch.training.run import build_trainer
+    from e3diff_tpu_torch.utils import telemetry
+    from e3diff_tpu_torch.utils.presets import structure_train_config
+
+    cfg = structure_train_config(max_epochs=1)
+    batch, _ = train_batch(torch, cfg, gen, "structure")
+    trainer = build_trainer("structure", cfg, "cuda", steps_per_epoch=10_000)
+    step = trainer.capture(batch)
+    span = [s for s in telemetry.recorder().spans("graphs.capture")
+            if s.attrs.get("owner") == "train"][-1]
+    got = span.attrs.get("adamw_launches")
+    print(f"  a captured structure train step's graphs.capture span: "
+          f"adamw_launches {got}", flush=True)
+    check(got is not None and got >= 1, f"the captured structure train "
+          f"step's adamw_launches is {got}, not 1 or more")
+    check(got == step.launches["adamw_update"], f"adamw_launches {got}, "
+          f"the capture's launches {step.launches}")
+    step.close()
+    del trainer, step
+    torch.cuda.empty_cache()
+    return got
+
+
+def adamw_phase(torch, kernels, gen) -> tuple[dict, list[dict]]:
+    """Phase 12 (i): the fused clipping and AdamW update against the plain
+    chain, bit for bit, at both train cells' parameter lists and an edge
+    list; its time, bound, the chain's and the library's (a row of the
+    kernels line for each list); and a captured train step's
+    adamw_launches; ``launches``: the kernel's launches in the phase."""
+    numbers, failures, rows = {}, [], []
+    before = kernels.adamw_update.launches
+    lists = {kind: adamw_param_shapes(torch, kind)
+             for kind in ("sequence", "structure")}
+    for kind, shapes in lists.items():
+        for mu_dtype, wd in ADAMW_CASES:
+            failures += adamw_against_plain(torch, kernels, kind, shapes,
+                                            mu_dtype, wd, gen)
+            torch.cuda.empty_cache()
+    many = [(int(n),) for n in torch.randint(
+        1, 50, (ADAMW_MANY,), generator=torch.Generator().manual_seed(3))]
+    for mu_dtype in ("f32", "bf16"):
+        failures += adamw_against_plain(
+            torch, kernels, "edge", [(n,) for n in ADAMW_EDGE_SIZES],
+            mu_dtype, 0.1, gen, flat=True)
+        failures += adamw_against_plain(torch, kernels, f"{ADAMW_MANY} small",
+                                        many, mu_dtype, 0.1, gen)
+    check(not failures, "the fused AdamW update differs from the plain "
+          "chain: " + " | ".join(failures))
+    for kind, shapes in lists.items():
+        rows.append(adamw_timing(torch, kernels, kind, shapes, gen))
+        torch.cuda.empty_cache()
+    numbers["capture_adamw_launches"] = adamw_capture_check(torch, kernels,
+                                                            gen)
+    numbers["launches"] = kernels.adamw_update.launches - before
+    return numbers, rows
 
 
 # ---------------------------------------------------------------------------
@@ -4329,8 +4594,8 @@ def _par_train(torch, mesh, workdir: Path, t_start):
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                train_launches=counts,
                launches_ok=counts == {k: PAR_STEPS * n for k, n in
-                                      with_zeros(kernels, PER_TRAIN_STEP[
-                                          "structure"]).items()})
+                                      with_zeros(kernels, train_step_launches(
+                                          "structure")).items()})
     # replicas: the dp ranks hold everything alike, the tp ranks the
     # replicated tensors (the distance tables among them)
     sd = trainer.model.state_dict()

@@ -117,5 +117,10 @@ def load_library() -> ctypes.CDLL:
         lib.e3d_attention_train_occupancy.restype = i
         lib.e3d_layernorm_backward_occupancy.argtypes = [i, i, p]
         lib.e3d_layernorm_backward_occupancy.restype = i
+        lib.e3d_adamw.argtypes = ([p, i, i, p, i, p, p, p, ctypes.c_longlong]
+                                  + [f] * 7 + [i, i, p])
+        lib.e3d_adamw.restype = i
+        lib.e3d_adamw_max_tensors.argtypes = []
+        lib.e3d_adamw_max_tensors.restype = i
         _lib = lib
     return _lib

@@ -18,6 +18,10 @@ launch counters and the autograd functions that train through them.
   ``layernorm_backward`` (``csrc/layernorm_backward.cu``): the gradients
   that XLA's autodiff computes for the JAX package's einsum attention and
   ``nn.LayerNorm`` (the Pallas kernels are forward-only).
+* ``adamw_update`` (``csrc/adamw.cu``) replaces no TPU kernel: gradient
+  clipping by the global norm and the AdamW update in one pass over every
+  parameter, where the plain version is the optimizer's chain of
+  ``_foreach`` ops (the JAX package leaves optax's chain to XLA).
 
 A wrapper given CUDA tensors launches its kernel (and adds one to its
 ``launches`` count) or raises; given CPU tensors it runs the plain PyTorch
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 
 import torch
@@ -791,8 +796,170 @@ def layernorm(x, weight=None, bias=None, residual=None, *, eps: float):
     return fused_layernorm(x, weight, bias, residual, eps=eps)
 
 
+# ---------------------------------------------------------------------------
+# clipping and AdamW
+# ---------------------------------------------------------------------------
+
+# elements of one tensor a block of csrc/adamw.cu updates: a multiple of
+# its 4-wide vectors, so that only a tensor's last chunk has a tail
+ADAMW_CHUNK = 4096
+
+
+def _in_dtype(x: float, dtype) -> float:
+    """``x`` rounded to ``dtype``, as optax's weak-typed scalar meets a
+    moment of that dtype."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+@torch.no_grad()
+def adamw_update_plain(params, grads, mu, nu, norm, table, count, *,
+                       grad_clip: float, b1: float, b2: float, eps: float,
+                       weight_decay: float) -> None:
+    """Plain PyTorch version of ``adamw_update``: optax's
+    clip_by_global_norm then adamw, as ``_foreach`` ops in optax's order.
+    Each gradient becomes (g / norm) * grad_clip where norm >= grad_clip;
+    the moments, ``count`` and the parameters are updated in place, with
+    lr and the bias corrections read from ``table``'s row at ``count``
+    (its last row past the run's end). A moment stored in another dtype
+    than the parameters (bf16) gets b1 mu rounded to it before the f32
+    sum; the update reads the sum, the moment keeps it rounded."""
+    clipped = torch._foreach_mul(torch._foreach_div(grads, norm), grad_clip)
+    keep = norm < grad_clip
+    grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
+    row = table.index_select(
+        0, count.clamp(max=len(table) - 1).reshape(1))[0]
+    lr, bc1, bc2 = row.unbind()
+    count.add_(1)
+    g1 = torch._foreach_mul(grads, 1 - b1)
+    if mu[0].dtype == params[0].dtype:
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, g1)
+        m = mu
+    else:
+        m = torch._foreach_add(g1, torch._foreach_mul(
+            mu, _in_dtype(b1, mu[0].dtype)))
+        torch._foreach_copy_(mu, m)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(nu, torch._foreach_mul(
+        torch._foreach_mul(grads, grads), 1 - b2))
+    denom = torch._foreach_add(torch._foreach_sqrt(
+        torch._foreach_div(nu, bc2)), eps)
+    updates = torch._foreach_div(torch._foreach_div(m, bc1), denom)
+    if weight_decay:
+        updates = torch._foreach_add(
+            updates, torch._foreach_mul(params, weight_decay))
+    torch._foreach_add_(params, torch._foreach_mul(updates, -lr))
+
+
+def adamw_chunks(numels, chunk: int = ADAMW_CHUNK) -> torch.Tensor:
+    """The kernel's work list over tensors of ``numels`` elements: (n, 4)
+    int32 rows (tensor, start, length, 0), each tensor cut from its start
+    into chunks of ``chunk`` elements, the last ending at the tensor's
+    end. One block updates one chunk."""
+    rows = [(t, s, min(chunk, n - s), 0) for t, n in enumerate(numels)
+            for s in range(0, n, chunk)]
+    return torch.tensor(rows, dtype=torch.int32).reshape(-1, 4)
+
+
+def adamw_groups(numels, max_tensors: int,
+                 chunk: int = ADAMW_CHUNK) -> list[tuple[int, int, int, int]]:
+    """The launches over tensors of ``numels`` elements, each taking the
+    pointers of at most ``max_tensors`` tensors: (first tensor, end
+    tensor, first row, end row of ``adamw_chunks``), launches with no
+    chunk left out."""
+    firsts = list(itertools.accumulate((-(-n // chunk) for n in numels),
+                                       initial=0))
+    groups = []
+    for t0 in range(0, len(numels), max_tensors):
+        t1 = min(t0 + max_tensors, len(numels))
+        if firsts[t1] > firsts[t0]:
+            groups.append((t0, t1, firsts[t0], firsts[t1]))
+    return groups
+
+
+def adamw_tensor_table(params, grads, mu, nu, t0: int, t1: int) -> list[int]:
+    """The pointers a launch over tensors t0 .. t1 - 1 takes by value: p,
+    g, mu and nu of each tensor in turn."""
+    return [x.data_ptr() for i in range(t0, t1)
+            for x in (params[i], grads[i], mu[i], nu[i])]
+
+
+@functools.cache
+def _adamw_plan(numels: tuple[int, ...], device):
+    """The chunk list on ``device`` and the launches, once per parameter
+    list: made at the first call, which a capture's warm-up precedes."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("adamw_update: the first update of a parameter "
+                           "list copies its chunk list to the card, which a "
+                           "CUDA graph cannot capture: run one eagerly first")
+    max_tensors = _build.load_library().e3d_adamw_max_tensors()
+    return (adamw_chunks(numels).to(device),
+            adamw_groups(numels, max_tensors))
+
+
+def adamw_update(params, grads, mu, nu, norm, table, count, *,
+                 grad_clip: float, b1: float, b2: float, eps: float,
+                 weight_decay: float) -> None:
+    """Clip every gradient by the global ``norm`` (a 0-d f32 tensor) and
+    apply one AdamW update in place: ``params``, the moments ``mu``
+    (f32, or bf16) and ``nu``, and ``count`` (0-d int64), with lr and the
+    bias corrections read from the (rows, 3) f32 ``table`` at ``count``
+    on the card (training/optim.py::schedule_table). One pass,
+    ``csrc/adamw.cu``, bit for bit ``adamw_update_plain``."""
+    name = "adamw_update"
+    n = len(params)
+    if n == 0 or not len(grads) == len(mu) == len(nu) == n:
+        raise ValueError(f"{name}: {n} params, {len(grads)} grads, "
+                         f"{len(mu)} mu, {len(nu)} nu")
+    for p, g, m, v in zip(params, grads, mu, nu):
+        if not p.shape == g.shape == m.shape == v.shape:
+            raise ValueError(f"{name}: shapes {tuple(p.shape)}, "
+                             f"{tuple(g.shape)}, {tuple(m.shape)}, "
+                             f"{tuple(v.shape)}")
+    if norm.dim() != 0 or count.dim() != 0 or table.shape[1:] != (3,):
+        raise ValueError(f"{name}: norm {tuple(norm.shape)}, count "
+                         f"{tuple(count.shape)}, table {tuple(table.shape)}")
+    device = params[0].device
+    if device.type == "cpu":
+        return adamw_update_plain(params, grads, mu, nu, norm, table, count,
+                                  grad_clip=grad_clip, b1=b1, b2=b2, eps=eps,
+                                  weight_decay=weight_decay)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {device}")
+    mu_dtype = mu[0].dtype
+    if mu_dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: mu dtype {mu_dtype}")
+    for ts, dtype in ((params, torch.float32), (grads, torch.float32),
+                      (mu, mu_dtype), (nu, torch.float32),
+                      ([norm, table], torch.float32), ([count], torch.int64)):
+        for t in ts:
+            if t.dtype != dtype:
+                raise ValueError(f"{name}: {tuple(t.shape)} is {t.dtype}, "
+                                 f"not {dtype}")
+    _check_cuda(name, *params, *grads, *mu, *nu, norm, table, count)
+    if max(p.numel() for p in params) >= 2**31:
+        raise ValueError(f"{name}: a tensor of 2^31 elements or more")
+    chunks, groups = _adamw_plan(tuple(p.numel() for p in params), device)
+    lib = _build.load_library()
+    for t0, t1, c0, c1 in groups:
+        ptrs = adamw_tensor_table(params, grads, mu, nu, t0, t1)
+        code = lib.e3d_adamw(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), t1 - t0, t0,
+            ctypes.c_void_p(chunks.data_ptr() + c0 * chunks.stride(0)
+                            * chunks.element_size()), c1 - c0, _ptr(norm),
+            _ptr(table), _ptr(count), len(table), grad_clip,
+            _in_dtype(b1, mu_dtype), 1 - b1, b2, 1 - b2, eps, weight_decay,
+            int(bool(weight_decay)), _DTYPE_CODE[mu_dtype], _stream())
+        _raise_on_error(name, code)
+        adamw_update.launches += 1
+    count.add_(1)
+
+
+adamw_update.launches = 0
+
+
 KERNELS = (fused_attention, fused_layernorm, fused_attention_train,
-           attention_backward, layernorm_backward)
+           attention_backward, layernorm_backward, adamw_update)
 
 
 def reset_launch_counts() -> None:

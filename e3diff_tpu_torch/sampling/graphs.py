@@ -26,7 +26,10 @@ whose ``image_reads`` and ``weight_casts`` count the Linear and distance
 table calls the capture recorded (on its thread) that read the weights'
 compute image and that cast or dequantized the stored weights
 (models/blocks.py::weight_reads): a sampler's capture of f32 weights in
-bf16 compute casts none, a train step's casts every one.
+bf16 compute casts none, a train step's casts every one; and whose
+``adamw_launches`` counts the launches of the fused clipping and AdamW
+update (ops/kernels.py::adamw_update) the capture recorded: one a train
+step, none where the step missed the kernel.
 
 A tensor-parallel model's NCCL all-reduces are captured with the rest of
 its call; a gloo mesh's collectives stage through the host and cannot
@@ -91,6 +94,7 @@ class CapturedCall:
             self.launches = {k: after[k] - before[k] for k in after}
             span.attrs["image_reads"], span.attrs["weight_casts"] = (
                 now - was for now, was in zip(weight_reads(), reads))
+            span.attrs["adamw_launches"] = self.launches["adamw_update"]
 
     def replay(self) -> None:
         self.graph.replay()

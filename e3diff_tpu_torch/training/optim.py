@@ -16,8 +16,10 @@ The chain is optax.clip_by_global_norm(grad_clip) then optax.adamw:
 The schedule is the reference's per-epoch linear warmup (quirk Q12): HF
 get_linear_schedule_with_warmup stepped once per epoch, warmup =
 int(0.1 max_epochs) epochs, so with the presets every step of epoch 0 has
-learning rate 0. The optimizer is plain PyTorch: the JAX package leaves it
-to XLA, outside any Pallas kernel.
+learning rate 0. The JAX package leaves the optimizer to XLA, outside any
+Pallas kernel; here the clipping and the update after the global norm are
+one pass, ops/kernels.py::adamw_update (csrc/adamw.cu on the card, the
+chain of _foreach ops, its plain version, on the CPU), with the same bits.
 
 On a mesh the clipping norm is the whole model's: the squares of the
 tp-sharded gradients are summed over ``tp_group``, the replicated ones
@@ -31,6 +33,8 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 from torch import nn
+
+from e3diff_tpu_torch.ops import kernels
 
 
 def linear_warmup_per_epoch(base_lr: float, max_epochs: int,
@@ -131,44 +135,15 @@ class AdamW:
         self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                    for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        # b1 mu in mu's own dtype, as optax's weak-typed scalar gives: under
-        # mu_dtype bf16 both b1 and the product are rounded to bf16; the
-        # sum is f32
-        self._b1_mu = float(torch.tensor(b1, dtype=self.mu[0].dtype))
 
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """One update from ``grads`` (in ``self.names`` order)."""
         norm = global_norm(grads, self.sharded, self.mesh)
-        # clip_by_global_norm: (g / norm) * max_norm where norm >= max_norm
-        clipped = torch._foreach_mul(torch._foreach_div(grads, norm),
-                                     self.grad_clip)
-        keep = norm < self.grad_clip
-        grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
-        b1, b2 = self.b1, self.b2
-        row = self.table.index_select(
-            0, self.count.clamp(max=len(self.table) - 1).reshape(1))[0]
-        lr, bc1, bc2 = row.unbind()
-        self.count.add_(1)
-        g1 = torch._foreach_mul(grads, 1 - b1)
-        if self.mu_dtype is None:
-            torch._foreach_mul_(self.mu, b1)
-            torch._foreach_add_(self.mu, g1)
-            mu = self.mu
-        else:   # the update reads the f32 sum, the buffer keeps it rounded
-            mu = torch._foreach_add(g1, torch._foreach_mul(self.mu,
-                                                           self._b1_mu))
-            torch._foreach_copy_(self.mu, mu)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1 - b2))
-        denom = torch._foreach_add(torch._foreach_sqrt(
-            torch._foreach_div(self.nu, bc2)), self.eps)
-        updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        if self.weight_decay:
-            updates = torch._foreach_add(
-                updates, torch._foreach_mul(self.params, self.weight_decay))
-        torch._foreach_add_(self.params, torch._foreach_mul(updates, -lr))
+        kernels.adamw_update(self.params, grads, self.mu, self.nu, norm,
+                             self.table, self.count,
+                             grad_clip=self.grad_clip, b1=self.b1, b2=self.b2,
+                             eps=self.eps, weight_decay=self.weight_decay)
         return norm
 
     def state_dict(self) -> dict:
